@@ -1,0 +1,384 @@
+"""Vertex partitioners and partition batches of the I/O-efficient drivers.
+
+Host numpy, copied from ``repro.core.partition``.  The paper (Section 5.1)
+splits the current graph into parts whose *neighbourhood subgraphs* NS(P)
+fit a working-set budget, counted in edge entries:
+
+* ``sequential_partition`` — contiguous vertex-id blocks whose summed NS
+  cost (incident degrees) stays under the budget;
+* ``random_partition`` — vertices hashed into ceil(total / budget) parts,
+  with each overflowing part's excess repacked cost-bounded.
+
+(The locality-aware partitioner is not ported yet.)
+
+:func:`build_partition_batch` turns one round's parts into the device form:
+every NS(P) extracted in one sweep and compacted to local edge ids, parts
+grouped into pow4 size classes, first-fit-decreasing packed into lanes and
+padded to static shapes.  Padding lanes are dead and padding triangles
+point at the per-lane drop slot ``cap_e``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core.graph import Graph, closed_wedge_estimate, compact_index
+from repro_torch.core.support import (_pow2_ceil, _pow4_ceil, list_triangles,
+                                      support_from_triangle_list,
+                                      triangle_incidence_np)
+
+
+class PartitionBudgetWarning(UserWarning):
+    """A single vertex's NS estimate exceeds the partition budget; it still
+    becomes a (over-budget) singleton part."""
+
+    def __init__(self, n_over: int, budget: int, max_cost: int):
+        self.n_over = n_over
+        self.budget = budget
+        self.max_cost = max_cost
+        super().__init__(
+            f"{n_over} vertex(es) have NS cost above budget={budget} "
+            f"(max cost {max_cost}); emitting over-budget singleton parts")
+
+
+def _ns_cost(g: Graph) -> np.ndarray:
+    """Per-vertex NS working-set estimate: its full incident degree."""
+    return g.deg.astype(np.int64)
+
+
+def _warn_over_budget(cost: np.ndarray, active: np.ndarray, budget: int,
+                      stacklevel: int = 3) -> None:
+    over = cost[active] > budget
+    if over.any():
+        warnings.warn(
+            PartitionBudgetWarning(int(over.sum()), int(budget),
+                                   int(cost[active][over].max())),
+            stacklevel=stacklevel)
+
+
+def _pack_cost_bounded(vertices, cost: np.ndarray,
+                       budget: int) -> List[np.ndarray]:
+    """Split ``vertices`` (in order) into consecutive groups whose summed
+    cost stays within ``budget``; an over-budget vertex is a singleton."""
+    parts: List[np.ndarray] = []
+    cur: list[int] = []
+    acc = 0
+    for v in vertices:
+        c = int(cost[v])
+        if cur and acc + c > budget:
+            parts.append(np.asarray(cur, dtype=np.int32))
+            cur, acc = [], 0
+        cur.append(int(v))
+        acc += c
+    if cur:
+        parts.append(np.asarray(cur, dtype=np.int32))
+    return parts
+
+
+def _first_fit_decreasing(sizes: Sequence[int],
+                          capacity: int) -> List[List[int]]:
+    """Pack item indices into bins of ``capacity``, first-fit-decreasing
+    (an item above the capacity still gets its own bin)."""
+    order = sorted(range(len(sizes)), key=lambda i: -sizes[i])
+    bins: List[List[int]] = []
+    room: List[int] = []
+    for i in order:
+        s = sizes[i]
+        for j in range(len(bins)):
+            if room[j] >= s:
+                bins[j].append(i)
+                room[j] -= s
+                break
+        else:
+            bins.append([i])
+            room.append(capacity - s)
+    return bins
+
+
+def sequential_partition(g: Graph, budget: int) -> List[np.ndarray]:
+    """Contiguous vertex blocks with estimated NS size <= budget each."""
+    cost = _ns_cost(g)
+    active = np.nonzero(cost > 0)[0]
+    if len(active) == 0:
+        return []
+    _warn_over_budget(cost, active, budget)
+    return _pack_cost_bounded(active, cost, budget)
+
+
+def random_partition(g: Graph, budget: int, seed: int = 0) -> List[np.ndarray]:
+    """Hash vertices into ceil(total_cost / budget) parts; each overflowing
+    bin keeps its largest under-budget prefix (at least one vertex) and the
+    spill is repacked cost-bounded, largest first."""
+    cost = _ns_cost(g)
+    active = np.nonzero(cost > 0)[0]
+    if len(active) == 0:
+        return []
+    _warn_over_budget(cost, active, budget)
+    total = int(cost[active].sum())
+    p = max(1, int(np.ceil(total / max(budget, 1))))
+    rng = np.random.default_rng(seed)
+    assign = rng.integers(0, p, size=len(active))
+    parts: List[np.ndarray] = []
+    spill: List[np.ndarray] = []
+    for i in range(p):
+        P = active[assign == i]
+        if len(P) == 0:
+            continue
+        csum = np.cumsum(cost[P])
+        k = max(int(np.searchsorted(csum, budget, side="right")), 1)
+        parts.append(P[:k].astype(np.int32))
+        if k < len(P):
+            spill.append(P[k:])
+    if spill:
+        sp = np.concatenate(spill)
+        sp = sp[np.argsort(-cost[sp], kind="stable")]
+        parts.extend(_pack_cost_bounded(sp, cost, budget))
+    return parts
+
+
+PARTITIONERS = {
+    "sequential": sequential_partition,
+    "random": random_partition,
+}
+
+
+# ---------------------------------------------------------------------------
+# Partition batches
+# ---------------------------------------------------------------------------
+
+def ns_edge_lists(
+    g: Graph, parts: Sequence[np.ndarray],
+    part_of: np.ndarray | None = None,
+) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Every NS(P_i) edge list in one sweep: per part, ``(edge_ids,
+    internal)`` with edge ids ascending.  An edge is in the NS of the
+    part(s) of its endpoints and internal when both share one part."""
+    if part_of is None:
+        part_of = np.full(g.n, -1, dtype=np.int64)
+        for i, P in enumerate(parts):
+            part_of[np.asarray(P, dtype=np.int64)] = i
+    e = g.edges.astype(np.int64)
+    pu = part_of[e[:, 0]]
+    pv = part_of[e[:, 1]]
+    internal_flag = (pu == pv) & (pu >= 0)
+    eids = np.arange(g.m, dtype=np.int64)
+    dup = (pv != pu) & (pv >= 0)
+    owner = np.concatenate([pu, pv[dup]])
+    owner_e = np.concatenate([eids, eids[dup]])
+    keep = owner >= 0
+    owner, owner_e = owner[keep], owner_e[keep]
+    order = np.lexsort((owner_e, owner))
+    owner, owner_e = owner[order], owner_e[order]
+    bounds = np.searchsorted(owner, np.arange(len(parts) + 1))
+    out: List[Tuple[np.ndarray, np.ndarray]] = []
+    for i in range(len(parts)):
+        ids = owner_e[bounds[i]:bounds[i + 1]].astype(np.int32)
+        out.append((ids, internal_flag[ids]))
+    return out
+
+
+@dataclasses.dataclass
+class PartBucket:
+    """One static shape class of NS parts, packed and stacked lane-wise.
+
+    Every array is (B, ...) with B the (pow2-padded) lane count.  A lane
+    holds one or more parts as disjoint edge-id slices (trussness is
+    per-component, so one peel of the lane equals the per-part peels);
+    ``part_of`` records the slice ownership.  Local edge id ``cap_e`` is the
+    per-lane drop slot that padding triangles point at.
+    """
+
+    cap_e: int            # padded local edge capacity per lane (pow4)
+    cap_t: int            # padded triangle capacity per lane (pow4)
+    n_parts: int          # parts packed into this bucket's lanes
+    n_real_lanes: int     # lanes carrying parts (beyond: dead padding)
+    sup: np.ndarray       # (B, cap_e) int32 initial supports
+    tris: np.ndarray      # (B, cap_t, 3) int32; padding rows -> cap_e
+    alive: np.ndarray     # (B, cap_e) bool; padding slots/lanes False
+    indptr: np.ndarray    # (B, cap_e + 1) int32 edge->triangle incidence CSR
+    tids: np.ndarray      # (B, 3 * cap_t) int32 incidence payload
+    edge_ids: np.ndarray  # (B, cap_e) int64 parent edge ids; -1 on padding
+    internal: np.ndarray  # (B, cap_e) bool: both endpoints in the part
+    part_of: np.ndarray   # (B, cap_e) int32 part index per slot; -1 padding
+    real_edges: int       # total unpadded edges across real lanes
+
+    @property
+    def n_lanes(self) -> int:
+        return self.sup.shape[0]
+
+    @property
+    def padded_slots(self) -> int:
+        return int(self.sup.size)
+
+
+@dataclasses.dataclass
+class PartitionBatch:
+    """All NS(P) of one partition round, bucketed and padded."""
+
+    buckets: List[PartBucket]
+    n_parts: int
+    real_edges: int       # sum of NS edge counts (the round's scan volume)
+    padded_slots: int     # sum of lane slots materialized
+    max_part_edges: int   # largest single NS (budget-accounting check)
+    tri_total: int = 0    # triangles enumerated on the working graph
+    tri_assigned: int = 0  # of those, captured by some part
+    tri_est: int = 0      # wedge-based triangle estimate of the graph
+
+    @property
+    def tri_locality(self) -> float:
+        return self.tri_assigned / self.tri_total if self.tri_total else 1.0
+
+
+def assign_triangles(g: Graph, tris: np.ndarray,
+                     part_of: np.ndarray) -> np.ndarray:
+    """Part index of every triangle; -1 when its vertices span 3 parts.
+
+    A triangle lies inside NS(P) exactly when >= 2 of its vertices are in
+    P, and two disjoint parts cannot both hold two of three vertices, so
+    the assignment is unique.
+    """
+    if len(tris) == 0:
+        return np.zeros(0, np.int64)
+    e = g.edges.astype(np.int64)
+    u = e[tris[:, 0], 0]
+    v = e[tris[:, 0], 1]
+    x = e[tris[:, 1], 0]
+    y = e[tris[:, 1], 1]
+    w = np.where((x == u) | (x == v), y, x)   # the third vertex
+    pu, pv, pw = part_of[u], part_of[v], part_of[w]
+    return np.where(pu == pv, pu, np.where(pu == pw, pu,
+                    np.where(pv == pw, pv, -1)))
+
+
+def build_partition_batch(
+    g: Graph,
+    parts: Sequence[np.ndarray],
+    *,
+    with_incidence: bool = True,
+    pad_lanes_pow2: bool = True,
+    lane_capacity: int | None = None,
+    tris: np.ndarray | None = None,
+) -> PartitionBatch:
+    """Extract, compact, pack and pad every NS(P) of one round.
+
+    The round's triangles are enumerated ONCE on the working graph (scoped
+    to the union of the parts' NS) and routed to the part holding two of
+    their vertices (``assign_triangles``).  Parts are grouped into pow4 size
+    classes and first-fit-decreasing packed into lanes of the class
+    capacity; the lane count is padded to a pow2 (``pad_lanes_pow2``).
+    ``lane_capacity`` forces every part into one class of that capacity.
+    ``with_incidence=False`` skips the per-lane supports and incidence CSR.
+    ``tris`` passes a precomputed (T, 3) triangle list of the full graph
+    ``g`` (the incremental round pipeline), which replaces the enumeration.
+    """
+    if lane_capacity is not None and lane_capacity <= 0:
+        raise ValueError(
+            f"lane_capacity must be positive or None, got {lane_capacity!r}")
+
+    part_of = np.full(g.n, -1, dtype=np.int64)
+    for i, P in enumerate(parts):
+        part_of[np.asarray(P, dtype=np.int64)] = i
+    e64 = g.edges.astype(np.int64)
+    in_ns = (part_of[e64[:, 0]] >= 0) | (part_of[e64[:, 1]] >= 0)
+    full_scope = bool(in_ns.all())
+    g_scan = g if full_scope else g.remove_edges(~in_ns)
+    if tris is not None:
+        tris_g = np.asarray(tris, np.int64).reshape(-1, 3)
+        if not full_scope and len(tris_g):
+            tris_g = tris_g[in_ns[tris_g].all(axis=1)]
+    else:
+        tris_g = np.asarray(list_triangles(g_scan), np.int64).reshape(-1, 3)
+        if not full_scope and len(tris_g):
+            tris_g = np.nonzero(in_ns)[0][tris_g]   # back to g's edge ids
+    tri_part = assign_triangles(g, tris_g, part_of)
+    tri_total = int(len(tris_g))
+    tri_assigned = int((tri_part >= 0).sum())
+    tri_est = int(closed_wedge_estimate(g_scan).sum()) // 3
+    order = np.argsort(tri_part, kind="stable")
+    tris_sorted = tris_g[order]
+    bounds = np.searchsorted(tri_part[order], np.arange(len(parts) + 1))
+
+    per_part = []
+    for i, (ids, internal) in enumerate(ns_edge_lists(g, parts, part_of)):
+        if len(ids) == 0:
+            continue
+        # global edge ids -> part-local slots (every edge of an assigned
+        # triangle is in NS(P) by construction)
+        local = compact_index(ids, tris_sorted[bounds[i]:bounds[i + 1]])
+        per_part.append((ids, internal, len(ids), local))
+
+    if not per_part:
+        return PartitionBatch(buckets=[], n_parts=0, real_edges=0,
+                              padded_slots=0, max_part_edges=0,
+                              tri_total=tri_total, tri_assigned=tri_assigned,
+                              tri_est=tri_est)
+
+    groups: dict[int, List[int]] = {}
+    for idx, item in enumerate(per_part):
+        if lane_capacity is not None and item[2] <= lane_capacity:
+            key = lane_capacity
+        else:
+            key = _pow4_ceil(item[2])
+        groups.setdefault(key, []).append(idx)
+
+    buckets: List[PartBucket] = []
+    total_real = total_pad = max_part = 0
+    for cap_e in sorted(groups):
+        members = groups[cap_e]
+        packed = _first_fit_decreasing([per_part[i][2] for i in members],
+                                       cap_e)
+        lanes = [[members[i] for i in lane] for lane in packed]
+        lane_T = [sum(len(per_part[i][3]) for i in lane) for lane in lanes]
+        cap_t = _pow4_ceil(max(max(lane_T), 1))
+        n_real_lanes = len(lanes)
+        B = _pow2_ceil(n_real_lanes) if pad_lanes_pow2 else n_real_lanes
+        sup_b = np.zeros((B, cap_e), np.int32)
+        tris_b = np.full((B, cap_t, 3), cap_e, np.int32)
+        alive_b = np.zeros((B, cap_e), bool)
+        indptr_b = np.zeros((B, cap_e + 1), np.int32)
+        tids_b = np.zeros((B, 3 * cap_t), np.int32)
+        eid_b = np.full((B, cap_e), -1, np.int64)
+        int_b = np.zeros((B, cap_e), bool)
+        part_b = np.full((B, cap_e), -1, np.int32)
+        real_edges = 0
+        for lane_idx, lane in enumerate(lanes):
+            off_e = off_t = 0
+            for part_idx in lane:
+                ids, internal, m_loc, tri_loc = per_part[part_idx]
+                sl = slice(off_e, off_e + m_loc)
+                alive_b[lane_idx, sl] = True
+                eid_b[lane_idx, sl] = ids
+                int_b[lane_idx, sl] = internal
+                part_b[lane_idx, sl] = part_idx
+                if len(tri_loc):
+                    tris_b[lane_idx, off_t: off_t + len(tri_loc)] = \
+                        tri_loc + off_e
+                if with_incidence:
+                    sup_b[lane_idx, sl] = support_from_triangle_list(
+                        tri_loc, m_loc)
+                off_e += m_loc
+                off_t += len(tri_loc)
+                max_part = max(max_part, m_loc)
+            real_edges += off_e
+            if with_incidence:
+                indptr, tids = triangle_incidence_np(tris_b[lane_idx], cap_e)
+                indptr_b[lane_idx] = indptr
+                tids_b[lane_idx, : len(tids)] = tids
+        buckets.append(PartBucket(
+            cap_e=cap_e, cap_t=cap_t, n_parts=len(members),
+            n_real_lanes=n_real_lanes, sup=sup_b, tris=tris_b,
+            alive=alive_b, indptr=indptr_b, tids=tids_b, edge_ids=eid_b,
+            internal=int_b, part_of=part_b, real_edges=real_edges,
+        ))
+        total_real += real_edges
+        total_pad += buckets[-1].padded_slots
+
+    return PartitionBatch(
+        buckets=buckets, n_parts=len(per_part), real_edges=total_real,
+        padded_slots=total_pad, max_part_edges=max_part,
+        tri_total=tri_total, tri_assigned=tri_assigned, tri_est=tri_est,
+    )

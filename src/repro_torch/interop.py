@@ -1,0 +1,46 @@
+"""State carried across from the JAX package.
+
+The JAX package keeps its host state in numpy: a ``Graph``'s arrays, a
+partition bucket's arrays.  These functions read such an object by its
+attribute names (duck typing: nothing of ``repro`` is imported) and build
+the port's own objects and device tensors, so that a test can hand both
+packages the same graph or the same bucket.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import Graph
+from repro_torch.core.partition import PartBucket
+from repro_torch.device import resolve_device
+
+_GRAPH_ARRAYS = ("edges", "deg", "rank", "src", "dst", "indptr", "nbrs",
+                 "nbr_eid")
+_BUCKET_ARRAYS = ("sup", "tris", "alive", "indptr", "tids", "edge_ids",
+                  "internal", "part_of")
+_BUCKET_INTS = ("cap_e", "cap_t", "n_parts", "n_real_lanes", "real_edges")
+
+
+def graph(src) -> Graph:
+    """The port's :class:`Graph` from a graph object with the reference's
+    attributes (``n``, ``max_out_deg`` and the packed arrays)."""
+    return Graph(n=int(src.n), max_out_deg=int(src.max_out_deg),
+                 **{k: np.array(getattr(src, k)) for k in _GRAPH_ARRAYS})
+
+
+def part_bucket(src) -> PartBucket:
+    """The port's :class:`PartBucket` from a bucket with the reference's
+    fields."""
+    return PartBucket(**{k: int(getattr(src, k)) for k in _BUCKET_INTS},
+                      **{k: np.array(getattr(src, k))
+                         for k in _BUCKET_ARRAYS})
+
+
+def bucket_tensors(bucket, device=None) -> dict:
+    """The device inputs of the fused peel for one bucket: ``sup``,
+    ``alive`` (B, cap_e) and ``tris`` (B, cap_t, 3), int32 on ``device``."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.asarray(getattr(bucket, k)).astype(
+        np.int32), device=dev) for k in ("sup", "alive", "tris")}

@@ -1,0 +1,84 @@
+"""Outer peel loops over the fused round kernel.
+
+``peel_classes_fused`` and ``peel_threshold_fused`` are the lockstep loops of
+``repro.kernels.frontier_peel.ops``: per round, one ``kernel.fused_round``
+call plus a few tensor reductions for the per-lane k-jump.  JAX runs them as
+one ``lax.while_loop`` on the device; here they are host loops over device
+tensors with ONE host synchronisation per round (``device.host_read`` of the
+loop-control flags).  A round in which no lane removes an edge is a no-op
+for the round kernel, so its launch is skipped; the stats are identical.
+
+The reference's routing rule for ``kernel="auto"`` (TPU backend, VMEM
+budget, 3T >= E) does not carry over: here ``"auto"`` means the CUDA kernel
+for CUDA tensors and the plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import host_read
+from repro_torch.kernels import check_kernel
+from repro_torch.kernels.frontier_peel import kernel as fk
+from repro_torch.kernels.frontier_peel.ref import BIG
+
+# stats columns (also core.peel's PeelStats vector): rounds, edges removed,
+# incidence slots gathered, max single-round frontier
+N_STATS = 4
+_S_ROUNDS, _S_REMOVED, _S_GATHERED, _S_MAXF = range(N_STATS)
+
+
+def peel_classes_fused(sup_b, tris_b, alive_b, *, kernel: str = "auto"):
+    """Trussness of every lane by lockstep fused rounds.
+
+    sup_b/alive_b: (B, E) int32 tensors, tris_b: (B, T, 3) int32 on the same
+    device (padding rows on the drop slot E).  Returns (phi (B, E) int32,
+    stats (B, N_STATS) int32): per lane, rounds += 1 while the lane is
+    alive, removed += frontier size, gathered += 3T on rounds that remove,
+    max frontier.
+    """
+    check_kernel(kernel)
+    sup, alive = sup_b, alive_b
+    B, E = sup.shape
+    three_t = 3 * int(tris_b.shape[1])
+    dev = sup.device
+    phi = torch.zeros((B, E), dtype=torch.int32, device=dev)
+    k = torch.full((B,), 2, dtype=torch.int32, device=dev)
+    st = torch.zeros((B, N_STATS), dtype=torch.int32, device=dev)
+    while True:
+        rm = torch.where(sup <= k[:, None] - 2, alive, 0)
+        nf = rm.sum(dim=1, dtype=torch.int32)
+        has_rm = nf > 0
+        lane_alive = (alive > 0).any(dim=1)
+        any_alive, any_rm = host_read(lane_alive.any(), has_rm.any())
+        if not any_alive:
+            break
+        min_sup = torch.where(alive > 0, sup, BIG).amin(dim=1)
+        k_next = torch.where(lane_alive & ~has_rm,
+                             torch.maximum(k + 1, min_sup + 2), k)
+        phi = torch.where(rm > 0, k[:, None], phi)
+        if any_rm:
+            sup, alive = fk.fused_round(sup, alive, rm, tris_b)
+        st[:, _S_ROUNDS] += lane_alive.to(torch.int32)
+        st[:, _S_REMOVED] += nf
+        st[:, _S_GATHERED] += torch.where(has_rm, three_t, 0).to(torch.int32)
+        st[:, _S_MAXF] = torch.maximum(st[:, _S_MAXF], nf)
+        k = k_next
+    return phi, st
+
+
+def peel_threshold_fused(sup, tris, removable, thresh: int, alive0, *,
+                         kernel: str = "auto"):
+    """Single-level candidate peel by fused rounds: repeatedly remove the
+    removable alive edges with ``sup <= thresh``.  (E,) int32 sup /
+    removable / alive0 and (T, 3) int32 triangles on one device; returns the
+    final (E,) int32 alive mask."""
+    check_kernel(kernel)
+    sup, alive, tris = sup[None], alive0[None], tris[None]
+    rem = removable[None] > 0
+    while True:
+        rm = torch.where(rem & (sup <= thresh), alive, 0)
+        (any_rm,) = host_read(rm.any())
+        if not any_rm:
+            return alive[0]
+        sup, alive = fk.fused_round(sup, alive, rm, tris)
