@@ -9,9 +9,14 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
 1. device: the card's name and power limit, torch and CUDA versions, and the
    build of every CUDA kernel under ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together);
-2. every kernel against its plain PyTorch version on the card, exact
-   equality, with its time, its bound and, where one PyTorch call computes
-   the same function, that call's time;
+2. every kernel against its plain PyTorch version on the card (B1, B2
+   exact; B3, B4 within the tolerances stated at ``B3_F32_TOL``,
+   ``B3_TOL``, ``B4_TOL``), with its time, its bound and, where one PyTorch
+   call computes the same function, that call's time: B3 flash attention
+   on the small float32 and bf16 cases of ``B3_CASES`` (every head width it
+   instantiates, ragged lengths, narrow windows, non-causal), then timed at
+   gemma3-4b's head shapes (causal and window 1024, bf16); B4 embedding bag
+   at DIN's table and batch shapes;
 3. in-memory route: ``truss_decompose`` on R-MAT scale 17;
 4. bottom-up route: ``truss_decompose(engine="bottom-up", memory_budget=
    estimate_working_set // 16)`` on R-MAT scale 15;
@@ -19,14 +24,25 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    (Erdos-Renyi, 2,048 vertices, 314,000 edges) that the density rule routes
    to the dense-support kernel;
 6. phi of every graph of phases 3-5 against digests of the JAX package's
-   answer, and the paper's Figure-2 graph against the port's serial oracle.
+   answer, and the paper's Figure-2 graph against the port's serial oracle;
+7. LM serving: gemma3-4b at full width (34 layers, d_model 2560, vocab
+   262,144, bf16, random weights from a generator seeded with 0, the flash
+   kernel on) serves 8 requests of 2,048-token prompts and 32 greedy decode
+   steps through ``serve.generate``; B3 must launch once per layer, the
+   logits must be finite, and the prefill's last-token logits must agree
+   with the plain attention path's within ``LOGITS_TOL``.  It also prints
+   how far the plain path's logits move with a window off by one key and
+   with no window at all, as a measure of what that limit can see.
 
-Phases 3-5 are the main path: every launch counter is set to 0 before phase
-3 and read after phase 5, and each kernel of the path must have launched.
-The kernels are then timed again on the largest inputs the main path gave
-them.  The line before the last is a JSON object listing every kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
-the repository beside it, the script exits non-zero and prints no result.
+Two main paths: the truss path (phases 3-5) and the LM path (phase 7).
+Every launch counter is set to 0 just before each and read just after it,
+and each kernel of the path must have launched (B1 and B2 on the truss
+path, B3 on the LM path; no model path reaches B4).  The kernels are then
+checked and timed again on the largest inputs their path gave them (B3:
+the largest of its global and of its windowed calls).  The line before
+the last is a JSON object listing every kernel; the last line is
+``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository
+beside it, the script exits non-zero and prints no result.
 
 ``--profile`` also traces each phase of the main path with
 ``torch.profiler`` (CUDA activity only) and prints the device's busy time,
@@ -36,6 +52,7 @@ that run include the tracing.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import subprocess
@@ -50,6 +67,39 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS = 989e12
+
+# B3 against its plain version in float32: the two sum the same terms in
+# other orders (as the CPU tests hold the plain version to the JAX kernel).
+B3_F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# B3 in bf16: both compute in float32 and round the result to bf16 once, so
+# where the float32 values straddle a rounding point they differ by one bf16
+# step, at most 2^-7 |o| (|o| reaches max |v|, about 4-5 for N(0, 1) values:
+# a step of 2^-6 there); atol covers outputs near 0.
+B3_TOL = dict(rtol=2 ** -7, atol=2e-3)
+# B3 float32 cases (B, Hq, Hkv, S, D, window, causal): every accumulator
+# width (D / 16 up to 1, 2, 4, 8, 16 groups, some partly used), sequence
+# lengths that are not a multiple of the 64-row tiles, windows of 20, 96 and
+# 1024 keys, and the non-causal branch; also run in bf16 at B3_TOL.
+B3_CASES = ((2, 4, 2, 200, 64, None, True), (1, 8, 8, 130, 128, None, True),
+            (2, 4, 1, 250, 64, 96, True), (1, 2, 2, 500, 32, 20, True),
+            (1, 4, 2, 300, 48, 20, True), (1, 4, 2, 190, 80, 96, True),
+            (1, 8, 4, 1100, 256, 1024, True), (1, 8, 4, 333, 192, 20, True),
+            (1, 4, 2, 190, 16, 40, False), (1, 4, 4, 150, 128, None, False))
+# B4 in float32: sums of L = 100 rows of N(0, 1) values in other orders.
+# A recursive float32 sum errs by at most about L 2^-24 sum|x| (~5e-4 for
+# sum|x| ~ 80); a sum that cancels to near 0 is held by atol, not rtol.
+B4_TOL = dict(rtol=1e-5, atol=5e-4)
+# phase 7: last-token logits of the flash and the plain prefill in bf16.
+# The two paths round attention outputs to bf16 at other points, and the
+# difference grows through 34 layers: on an H100 80GB HBM3 at 700 W it was
+# 0.0781 at most (mean 0.0114) with logits up to 5.16, so the limit leaves
+# about twice that.  It holds the path's wiring (every layer, head and
+# window in place, finite values), not B3's fine numerics: bf16 noise
+# through 34 layers hides small faults (phase 7 prints how far a window off
+# by one key moves these logits).  B3 itself is held to its plain version
+# in float32 in phase 2 and on the path's own inputs after it.
+LOGITS_TOL = dict(rtol=0.05, atol=0.15)
 
 # phi digests of the JAX package (repro.core.peel.truss_decompose, default
 # route), made on the CPU from the repository root with:
@@ -149,31 +199,63 @@ def b2_bound(n: int) -> tuple[float, str]:
     return (ops, "operations") if ops >= byt else (byt, "bytes")
 
 
+def visible_pairs(S: int, window: int | None) -> int:
+    """(query, key) pairs a causal attention over S positions computes:
+    key j is visible from query i when j <= i and i - window < j."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def b3_bound(q, k, window) -> tuple[float, str]:
+    """Least time of causal GQA attention: 4 B Hq D flops per visible pair
+    over the bf16 tensor-core peak, against q, k, v and o moved once."""
+    B, Hq, S, D = q.shape
+    ops = 4 * B * Hq * D * visible_pairs(S, window) / BF16_FLOPS * 1e3
+    byt = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+        / HBM_BYTES_PER_S * 1e3
+    return (ops, "operations") if ops >= byt else (byt, "bytes")
+
+
+def b4_bound_ms(table, idx) -> float:
+    """Least time of an embedding bag: the gathered rows, the indices and
+    the output moved once over the memory rate."""
+    B, L = idx.shape
+    row = table.shape[1] * table.element_size()
+    return (B * L * row + B * L * 4 + B * row) / HBM_BYTES_PER_S * 1e3
+
+
 class Probe:
     """Wraps a kernel wrapper for the main path: brackets every call with
     CUDA events (device time), sums the bound of every call, and keeps the
-    inputs of the largest call to time the kernel on afterwards."""
+    inputs of the largest call of each ``group`` (a key of the call's
+    arguments) to check and time the kernel on afterwards."""
 
-    def __init__(self, torch, module, name: str, size, bound):
+    def __init__(self, torch, module, name: str, size, bound,
+                 group=lambda *a, **kw: None):
         self.torch, self.module, self.name = torch, module, name
         self.fn = getattr(module, name)
-        self.size, self.bound = size, bound
-        self.events, self.bound_ms, self.largest = [], 0.0, None
+        self.size, self.bound, self.group = size, bound, group
+        self.events, self.bound_ms = [], 0.0
+        self.largest: dict = {}
         self.shapes: dict = {}
         setattr(module, name, self)
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         ev = self.torch.cuda.Event
         start, end = ev(enable_timing=True), ev(enable_timing=True)
         start.record()
-        out = self.fn(*args)
+        out = self.fn(*args, **kw)
         end.record()
         self.events.append((start, end))
-        self.bound_ms += self.bound(*args)
-        key = tuple(tuple(a.shape) for a in args)
+        self.bound_ms += self.bound(*args, **kw)
+        key = tuple(tuple(a.shape) for a in args) + tuple(sorted(kw.items()))
         self.shapes[key] = self.shapes.get(key, 0) + 1
-        if self.largest is None or self.size(*args) > self.size(*self.largest):
-            self.largest = args
+        g = self.group(*args, **kw)
+        if g not in self.largest or \
+                self.size(*args, **kw) > self.size(*self.largest[g][0],
+                                                   **self.largest[g][1]):
+            self.largest[g] = (args, kw)
         return out
 
     def close(self) -> float:
@@ -226,6 +308,14 @@ def main(argv) -> int:
     from repro_torch.kernels.frontier_peel import ref as fref
     from repro_torch.kernels.triangle_count import kernel as tk
     from repro_torch.kernels.triangle_count import ref as tref
+    from repro_torch.kernels.flash_attention import kernel as ak
+    from repro_torch.kernels.flash_attention import ref as aref
+    from repro_torch.kernels.embedding_bag import kernel as bk
+    from repro_torch.kernels.embedding_bag import ref as bref
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as lm
+    import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -298,8 +388,102 @@ def main(argv) -> int:
             f"{bound:.4f} ms ({by})")
         del A, Af, got, want
 
-    # -- main path: phases 3-5 -----------------------------------------------
-    fk.LAUNCHES = tk.LAUNCHES = 0
+    def sdpa(q, k, v, window):
+        """The library yardstick for B3: one scaled_dot_product_attention
+        call (a boolean mask for the window)."""
+        S = q.shape[2]
+        mask = None
+        if window is not None:
+            i = torch.arange(S, device=q.device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+
+    def check_b3(q, k, v, window, causal=True):
+        tol = B3_F32_TOL if q.dtype == torch.float32 else B3_TOL
+        got = ak.flash_attention(q, k, v, causal=causal, window=window)
+        want = aref.mha_reference(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), **tol):
+            raise AssertionError(f"B3 flash_attention differs from its plain "
+                                 f"version at {tuple(q.shape)} Hkv "
+                                 f"{k.shape[1]} {q.dtype} window {window} "
+                                 f"causal {causal}: max abs err {err}")
+        return err
+
+    for B, Hq, Hkv, S, D, window, causal in B3_CASES:
+        q = torch.randn((B, Hq, S, D), generator=gen, device=dev)
+        k = torch.randn((B, Hkv, S, D), generator=gen, device=dev)
+        v = torch.randn((B, Hkv, S, D), generator=gen, device=dev)
+        errs = [check_b3(q.to(dt), k.to(dt), v.to(dt), window, causal)
+                for dt in (torch.float32, torch.bfloat16)]
+        say(f"[2] B3 flash_attention (B,Hq,Hkv,S,D)={(B, Hq, Hkv, S, D)} "
+            f"window {window} causal {causal}: max abs err float32 "
+            f"{errs[0]:.3g} (tol {B3_F32_TOL}), bf16 {errs[1]:.3g}")
+
+    dt = torch.bfloat16
+    for B in (1, 8):
+        q = torch.randn((B, 8, 2048, 256), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, 4, 2048, 256), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, 4, 2048, 256), generator=gen, device=dev).to(dt)
+        for window in (None, 1024):
+            err = check_b3(q, k, v, window)
+            ms = time_ms(torch, lambda: ak.flash_attention(
+                q, k, v, window=window), 5)
+            plain = time_ms(torch, lambda: aref.mha_reference(
+                q, k, v, window=window), 3)
+            lib = time_ms(torch, lambda: sdpa(q, k, v, window), 5)
+            bound, by = b3_bound(q, k, window)
+            say(f"[2] B3 flash_attention (B,Hq,S,D)={tuple(q.shape)} Hkv "
+                f"{k.shape[1]} bf16 window {window}: max abs err {err:.3g} "
+                f"(tol {B3_TOL}); kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+                f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
+        del q, k, v
+
+    table = torch.randn((10_000_000, 18), generator=gen, device=dev)
+    for B in (512, 262_144):
+        idx = torch.randint(0, table.shape[0], (B, 100), generator=gen,
+                            device=dev, dtype=torch.int32)
+        for mode in ("sum", "mean"):       # the line keeps bulk mean
+            got = bk.embedding_bag(table, idx, mode=mode)
+            want = bref.embedding_bag(table, idx, mode=mode)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, **B4_TOL):
+                raise AssertionError(f"B4 embedding_bag differs from its "
+                                     f"plain version at B={B} {mode}: max "
+                                     f"abs err {err}")
+            ms = time_ms(torch, lambda: bk.embedding_bag(table, idx,
+                                                         mode=mode), 20)
+            plain = time_ms(torch, lambda: bref.embedding_bag(
+                table, idx, mode=mode), 5)
+            lib = time_ms(torch, lambda: F.embedding_bag(idx, table,
+                                                         mode=mode), 20)
+            b4 = dict(name="embedding_bag.embedding_bag", route="cuda",
+                      source="src/repro_torch/csrc/embedding_bag.cu",
+                      replaces="src/repro/kernels/embedding_bag/kernel.py:53",
+                      launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                      bound_ms=b4_bound_ms(table, idx), bound_by="bytes",
+                      library_ms=lib, shape=[*table.shape, B, 100],
+                      mode=mode, note="no model path of the JAX package "
+                      "reaches embedding_bag; timed at DIN serve_bulk")
+            say(f"[2] B4 embedding_bag V=10,000,000 D=18 f32 B={B} L=100 "
+                f"{mode}: max abs err {err:.3g} (tol {B4_TOL}); kernel "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, F.embedding_bag "
+                f"{lib:.4f} ms, bound {b4['bound_ms']:.4f} ms (bytes)")
+        del idx, got, want
+    del table
+
+    # -- truss path: phases 3-5 ----------------------------------------------
+    kernel_mods = {"B1": fk, "B2": tk, "B3": ak, "B4": bk}
+
+    def zero_counts():
+        for mod in kernel_mods.values():
+            mod.LAUNCHES = 0
+
+    zero_counts()
     p1 = Probe(torch, fk, "fused_round",
                size=lambda s, a, r, t: s.numel() + t.numel(),
                bound=lambda s, a, r, t: b1_bound_ms(s.shape[0], s.shape[1],
@@ -311,7 +495,8 @@ def main(argv) -> int:
     def run_phase(tag, fn):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        l0, s0 = (fk.LAUNCHES, tk.LAUNCHES), rdev.SYNCS
+        l0 = {n: mod.LAUNCHES for n, mod in kernel_mods.items()}
+        s0 = rdev.SYNCS
         prof = None
         if profile:
             prof = torch.profiler.profile(
@@ -321,11 +506,11 @@ def main(argv) -> int:
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = (fk.LAUNCHES - l0[0], tk.LAUNCHES - l0[1])
+        launches = {n: mod.LAUNCHES - l0[n] for n, mod in kernel_mods.items()}
         phase_launches[tag] = launches
         say(f"[{tag}] wall {wall:.3f} s, host syncs {rdev.SYNCS - s0}, "
-            f"launches B1 {launches[0]} B2 {launches[1]}, peak device "
-            f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+            f"launches {launches}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
         if prof is not None:
             prof.__exit__(None, None, None)
             # device-side events (kernels, copies, memsets) of the phase,
@@ -379,7 +564,7 @@ def main(argv) -> int:
         f"{ost.peel_s:.3f} s")
     if not np.array_equal(phi15_bu, phi15):
         raise AssertionError("bottom-up phi differs from the in-memory route")
-    if phase_launches["4 bottom-up rmat15"][0] == 0:
+    if phase_launches["4 bottom-up rmat15"]["B1"] == 0:
         raise AssertionError("bottom-up never launched the B1 kernel")
 
     # phase 5: top-down, sparse then a dense core
@@ -403,21 +588,23 @@ def main(argv) -> int:
         f"peels {td_er.stats.peel_s:.3f} s")
     if not np.array_equal(td_er.phi, phi_er):
         raise AssertionError("top-down phi differs on er2048")
-    if phase_launches["5c top-down er2048"][1] == 0:
+    if phase_launches["5c top-down er2048"]["B2"] == 0:
         raise AssertionError("top-down never launched the B2 kernel on the "
                              "dense core")
     launches = {"frontier_peel": fk.LAUNCHES, "triangle_count": tk.LAUNCHES}
+    if ak.LAUNCHES or bk.LAUNCHES:
+        raise AssertionError("the truss path launched B3 or B4")
     total_ms = {"frontier_peel": p1.close(), "triangle_count": p2.close()}
     for name, count in launches.items():
         if count == 0:
-            raise AssertionError(f"kernel {name} never launched on the main "
+            raise AssertionError(f"kernel {name} never launched on the truss "
                                  f"path")
     if (len(p1.events), len(p2.events)) != tuple(launches.values()):
         raise AssertionError("launch counters disagree with the calls seen")
-    say(f"[main path] launches {launches}, device ms in kernel calls "
+    say(f"[truss path] launches {launches}, device ms in kernel calls "
         f"{ {k: round(v, 3) for k, v in total_ms.items()} }, summed bounds "
         f"B1 {p1.bound_ms:.3f} ms B2 {p2.bound_ms:.3f} ms")
-    say(f"[main path] B1 launch shapes (count): "
+    say(f"[truss path] B1 launch shapes (count): "
         f"{sorted(p1.shapes.items(), key=lambda kv: -kv[1])[:8]}")
 
     # -- phase 6: digests -----------------------------------------------------
@@ -440,9 +627,83 @@ def main(argv) -> int:
         "bottom-up, top-down) and er2048 (in-memory, top-down); Figure-2 "
         "equals alg2_truss")
 
+    # -- phase 7: LM path, gemma3-4b served at full width --------------------
+    cfg = dataclasses.replace(registry.get_config("gemma3-4b"),
+                              use_flash_kernel=True)
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in [params["embed"], params["final_norm"],
+                                       *params["layers"].values()])
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, config says "
+                             f"{cfg.param_count()}")
+    say(f"[7] gemma3-4b: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {n_params:,} parameters in bf16, initialised on the "
+        f"card in {time.perf_counter() - t0:.2f} s")
+    n_req, prompt_len, new_tokens, max_seq = 8, 2048, 32, 2080
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (n_req, prompt_len)).astype(np.int32)
+    p3 = Probe(torch, ak, "flash_attention",
+               size=lambda q, k, v, causal, window: q.numel() *
+               visible_pairs(q.shape[2], window),
+               bound=lambda q, k, v, causal, window: b3_bound(q, k,
+                                                              window)[0],
+               group=lambda q, k, v, causal, window: window)
+    zero_counts()
+    gen_out = run_phase("7 serve gemma3-4b", lambda: serve.generate(
+        params, prompts, cfg, new_tokens, max_seq, device=dev))
+    lm_launches = {"flash_attention": ak.LAUNCHES}
+    b3_ms = p3.close()
+    if fk.LAUNCHES or tk.LAUNCHES or bk.LAUNCHES:
+        raise AssertionError("the LM path launched B1, B2 or B4")
+    if ak.LAUNCHES != cfg.n_layers or len(p3.events) != ak.LAUNCHES:
+        raise AssertionError(f"B3 launched {ak.LAUNCHES} times in one "
+                             f"prefill of {cfg.n_layers} layers")
+    say(f"[7] {n_req} requests x {prompt_len} prompt tokens: prefill wall "
+        f"{gen_out.prefill_s * 1e3:.1f} ms; {new_tokens} decode steps in "
+        f"{gen_out.decode_s * 1e3:.1f} ms = "
+        f"{n_req * new_tokens / gen_out.decode_s:.1f} tokens/s; B3 "
+        f"{ak.LAUNCHES} launches, {b3_ms:.3f} device ms in its calls "
+        f"(summed bounds {p3.bound_ms:.3f} ms); first request's tokens "
+        f"{gen_out.tokens[0, :8].tolist()}...")
+    flash_logits = gen_out.prefill_logits.float()
+    if gen_out.tokens.shape != (n_req, new_tokens) or \
+            flash_logits.shape != (n_req, cfg.vocab) or \
+            not bool(torch.isfinite(flash_logits).all()):
+        raise AssertionError("phase 7 output has the wrong shape or is not "
+                             "finite")
+    plain_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
+    t0 = time.perf_counter()
+    _, plain_logits = lm.prefill(params, prompts, plain_cfg, max_seq=max_seq,
+                                device=dev)
+    plain_logits = plain_logits.float()
+    torch.cuda.synchronize()
+    diff = (flash_logits - plain_logits).abs()
+    say(f"[7] plain-path prefill (chunked/banded attention) "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms; last-token logits: "
+        f"max |plain| {float(plain_logits.abs().max()):.4f}, max |flash - "
+        f"plain| {float(diff.max()):.4f}, mean {float(diff.mean()):.5f} "
+        f"(tol {LOGITS_TOL})")
+    if not torch.allclose(flash_logits, plain_logits, **LOGITS_TOL):
+        raise AssertionError("phase 7: the flash prefill's logits differ "
+                             "from the plain path's beyond the tolerance")
+    # what LOGITS_TOL can see: the plain path with its window rule broken
+    for label, window in (("a window off by one key", cfg.window - 1),
+                          ("no window", None)):
+        _, alt = lm.prefill(params, prompts, dataclasses.replace(
+            plain_cfg, window=window), max_seq=max_seq, device=dev)
+        d_alt = (alt.float() - plain_logits).abs()
+        say(f"[7] plain path with {label}: last-token logits move by "
+            f"{float(d_alt.max()):.4f} at most, mean {float(d_alt.mean()):.5f}"
+            f"; within LOGITS_TOL: "
+            f"{bool(torch.allclose(alt.float(), plain_logits, **LOGITS_TOL))}")
+        del alt, d_alt
+    del params, gen_out, flash_logits, plain_logits, diff
+
     # -- kernels on the largest inputs the main path gave them ---------------
     kernels = []
-    args = p1.largest
+    args, _ = p1.largest[None]
     got, want = fk.fused_round(*args), fref.fused_round(*args)
     err = max(int((g_ - w_).abs().max()) for g_, w_ in zip(got, want))
     B, E, T = args[0].shape[0], args[0].shape[1], args[3].shape[1]
@@ -456,7 +717,7 @@ def main(argv) -> int:
         bound_ms=b1_bound_ms(B, E, T), bound_by="bytes", library_ms=None,
         shape=[B, E, T], total_ms=total_ms["frontier_peel"],
         total_bound_ms=p1.bound_ms))
-    (A,) = p2.largest
+    (A,), _ = p2.largest[None]
     got, want = tk.triangle_count(A), tref.support_dense(A)
     Af = A.float()
     bound, by = b2_bound(A.shape[0])
@@ -476,6 +737,45 @@ def main(argv) -> int:
         if kern["max_abs_err"] != 0:
             raise AssertionError(f"{kern['name']} differs from its plain "
                                  f"version on the main path's inputs")
+    # B3: the largest global and the largest windowed call, on the path's
+    # own strided (B, S, H, D) views, in bf16 and (upcast, strides kept) in
+    # float32; the line keeps the largest of them
+    b3_rows = []
+    for window, ((q, k, v), kw) in sorted(
+            p3.largest.items(), key=lambda kv: kv[0] or 0):
+        err32 = check_b3(q.float(), k.float(), v.float(), window)
+        bound, by = b3_bound(q, k, window)
+        row = dict(
+            name="flash_attention.flash_attention", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:101",
+            launches=lm_launches["flash_attention"],
+            max_abs_err=check_b3(q, k, v, window),
+            ms=time_ms(torch, lambda: ak.flash_attention(
+                q, k, v, window=window), 5),
+            plain_ms=time_ms(torch, lambda: aref.mha_reference(
+                q, k, v, window=window), 3),
+            bound_ms=bound, bound_by=by,
+            library_ms=time_ms(torch, lambda: sdpa(q, k, v, window), 5),
+            shape=[*q.shape, k.shape[1]], strides=list(q.stride()),
+            window=window, float32_err=err32)
+        kind = "global" if window is None else "windowed"
+        say(f"[7] B3 on the path's largest {kind} call {row['shape']} "
+            f"window {window} strides {row['strides']}: "
+            f"max abs err bf16 {row['max_abs_err']:.3g}, float32 "
+            f"{err32:.3g}; kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+            f"bound {bound:.4f} ms ({by})")
+        b3_rows.append(row)
+    by_window = [{k: r[k] for k in ("window", "max_abs_err", "float32_err",
+                                    "ms", "plain_ms", "library_ms",
+                                    "bound_ms")} for r in b3_rows]
+    b3 = max(b3_rows, key=lambda r: r["bound_ms"])
+    b3.update(max_abs_err=max(r["max_abs_err"] for r in b3_rows),
+              total_ms=b3_ms, total_bound_ms=p3.bound_ms,
+              by_window=by_window)
+    kernels.append(b3)
+    kernels.append(b4)
     say(f"[all] wall {time.perf_counter() - t_all:.1f} s; {smi}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """State carried across from the JAX package.
 
 The JAX package keeps its host state in numpy: a ``Graph``'s arrays, a
-partition bucket's arrays.  These functions read such an object by its
-attribute names (duck typing: nothing of ``repro`` is imported) and build
-the port's own objects and device tensors, so that a test can hand both
-packages the same graph or the same bucket.
+partition bucket's arrays, an LM's parameter tree.  These functions read
+such an object by its attribute or key names (duck typing: nothing of
+``repro`` is imported) and build the port's own objects and device tensors,
+so that a test can hand both packages the same graph, bucket or weights.
 """
 
 from __future__ import annotations
@@ -44,3 +44,28 @@ def bucket_tensors(bucket, device=None) -> dict:
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.asarray(getattr(bucket, k)).astype(
         np.int32), device=dev) for k in ("sup", "alive", "tris")}
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    """An array (numpy, or anything ``np.asarray`` reads) as a tensor on
+    ``dev``; bfloat16 arrays (numpy has no such type of its own) are carried
+    bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def lm_params(tree, device=None) -> dict:
+    """The port's LM parameters from the JAX package's parameter tree
+    (``repro.models.transformer.init_params`` layout): ``embed``,
+    ``final_norm``, ``layers`` (stacked ``(L, ...)`` arrays) and ``lm_head``
+    unless the embedding is tied.  Dtypes are kept."""
+    dev = resolve_device(device)
+    out = {"embed": _tensor(tree["embed"], dev),
+           "final_norm": _tensor(tree["final_norm"], dev),
+           "layers": {k: _tensor(a, dev) for k, a in tree["layers"].items()}}
+    if "lm_head" in tree:
+        out["lm_head"] = _tensor(tree["lm_head"], dev)
+    return out

@@ -1,6 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version: ``frontier_peel`` (the fused peel round) and ``triangle_count``
-(dense-core supports).  ``build`` compiles ``csrc/`` on first use."""
+version: ``frontier_peel`` (the fused peel round), ``triangle_count``
+(dense-core supports), ``flash_attention`` (the LM prefill's attention) and
+``embedding_bag`` (bag lookups).  ``build`` compiles ``csrc/`` on first
+use."""
 
 
 def check_kernel(kernel: str) -> None:

@@ -1,0 +1,2 @@
+"""Models of the port: the decoder-only LM family (``transformer``) with its
+building blocks (``common``) and long-sequence attention (``attention``)."""

@@ -1,0 +1,65 @@
+"""Shared model building blocks on tensors: initialisation from an explicit
+``torch.Generator``, RMS norm, SwiGLU and rotary embeddings.
+
+The reference's mesh helpers (``shard``, ``dp_spec``) are the identity
+without a mesh and are left out; mesh paths are ROADMAP A13.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(gen: torch.Generator, shape,
+               dtype=torch.float32) -> torch.Tensor:
+    """Truncated-normal (at +-2 std) fan-in init (fan-in: ``shape[-2]``),
+    drawn in float32 on the generator's device and cast to ``dtype``."""
+    fan_in = shape[-2] if len(shape) > 1 else shape[0]
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (x / math.sqrt(fan_in)).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape,
+               dtype=torch.float32) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (x * 0.02).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in float32, scaled by ``1 + weight``; x's dtype out."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps)
+    return (xf * (1.0 + weight.float())).to(x.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """silu in float32, cast to the gate's dtype, times ``up``."""
+    return F.silu(gate.float()).to(gate.dtype) * up
+
+
+def rope_freqs(d_head: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, d_head, 2, dtype=np.float64)
+                            / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D), rotated on the last dim by halves (not
+    interleaved); positions: (..., S)."""
+    d = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
+                            device=x.device)                    # (D/2,)
+    ang = positions[..., None].float() * freqs                 # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]                     # (..., S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,331 @@
+"""Decoder-only LM family for inference: GQA (optional QKV bias), RoPE,
+local:global attention mixes, dense SwiGLU FFN, KV-cache serving.
+
+Plain functions over a parameter tree that has the reference's layout:
+``{"embed": (V, D), "final_norm": (D,), "layers": {name: (L, ...)},
+"lm_head": (D, V)}`` (no ``lm_head`` when the embedding is tied), so the
+JAX package's parameters carry across unchanged (``interop.lm_params``).
+The layer loop is a Python loop with ``kind = pattern[i % len(pattern)]``,
+which is the reference's scan over pattern periods plus the unrolled
+remainder.  ``LMConfig`` has the reference's fields less its training and
+TPU knobs (remat, microbatches, sequence sharding, the Pallas tile size)
+and less its MoE routing fields; MoE layers and the training loss wait for
+a later slice of the port.
+
+Serving: ``prefill`` runs the prompt through every layer (the flash
+kernel when ``cfg.use_flash_kernel`` is set, else the plain attention
+paths) and returns a KV cache and the last-token logits; ``decode_step``
+appends one token.  Unlike the reference, ``decode_step`` writes the new
+key and value into the cache in place (``index_copy_``), so a step does
+not copy the whole cache.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import attention as att
+from repro_torch.models import common as cm
+
+_MOE_TODO = ("MoE layers wait for a later slice of the port (ROADMAP A14): "
+             "only dense configs run")
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str = "lm"
+    n_layers: int = 4
+    d_model: int = 256
+    n_q: int = 4
+    n_kv: int = 2
+    d_head: int = 64
+    d_ff: int = 1024
+    vocab: int = 1024
+    qkv_bias: bool = False
+    tie_embed: bool = False
+    # attention pattern: tuple over one period, e.g. ("full",) or
+    # ("local",)*5 + ("global",); "local" uses sliding window.
+    pattern: tuple = ("full",)
+    window: int = 1024
+    rope_theta: float = 10_000.0
+    rope_theta_local: float = 10_000.0
+    # MoE (n_experts == 0 -> dense); the port runs dense configs only, and
+    # the routing fields come with the MoE slice
+    n_experts: int = 0
+    # numerics / execution
+    param_dtype: Any = torch.bfloat16
+    compute_dtype: Any = torch.bfloat16
+    norm_eps: float = 1e-6
+    use_flash_kernel: bool = False       # the flash-attention kernel path
+    attn_chunk: int = 1024               # > this seq len: chunked/banded attn
+
+    @property
+    def moe(self) -> bool:
+        return self.n_experts > 0
+
+    def param_count(self) -> int:
+        d, dh = self.d_model, self.d_head
+        attn = d * (self.n_q + 2 * self.n_kv) * dh + self.n_q * dh * d
+        if self.qkv_bias:
+            attn += (self.n_q + 2 * self.n_kv) * dh
+        if self.moe:
+            raise NotImplementedError(_MOE_TODO)
+        per_layer = attn + 3 * d * self.d_ff + 2 * d
+        emb = self.vocab * d * (1 if self.tie_embed else 2)
+        return self.n_layers * per_layer + emb + d
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
+    """Random parameters on the generator's device (dense configs only).
+    Stacked (L, ...) arrays are drawn one layer at a time in float32, so
+    the float32 peak is one layer's widest matrix."""
+    if cfg.moe:
+        raise NotImplementedError(_MOE_TODO)
+    L, d, dh = cfg.n_layers, cfg.d_model, cfg.d_head
+    pd, dev = cfg.param_dtype, gen.device
+
+    def stacked(shape):
+        out = torch.empty((L,) + shape, dtype=pd, device=dev)
+        for i in range(L):
+            out[i] = cm.dense_init(gen, shape, dtype=pd)
+        return out
+
+    layers = {
+        "ln1": torch.zeros((L, d), dtype=pd, device=dev),
+        "ln2": torch.zeros((L, d), dtype=pd, device=dev),
+        "wq": stacked((d, cfg.n_q * dh)),
+        "wk": stacked((d, cfg.n_kv * dh)),
+        "wv": stacked((d, cfg.n_kv * dh)),
+        "wo": stacked((cfg.n_q * dh, d)),
+    }
+    if cfg.qkv_bias:
+        layers["bq"] = torch.zeros((L, cfg.n_q * dh), dtype=pd, device=dev)
+        layers["bk"] = torch.zeros((L, cfg.n_kv * dh), dtype=pd, device=dev)
+        layers["bv"] = torch.zeros((L, cfg.n_kv * dh), dtype=pd, device=dev)
+    layers["w_gate"] = stacked((d, cfg.d_ff))
+    layers["w_up"] = stacked((d, cfg.d_ff))
+    layers["w_down"] = stacked((cfg.d_ff, d))
+    params = {
+        "embed": cm.embed_init(gen, (cfg.vocab, d), dtype=pd),
+        "final_norm": torch.zeros((d,), dtype=pd, device=dev),
+        "layers": layers,
+    }
+    if not cfg.tie_embed:
+        params["lm_head"] = cm.dense_init(gen, (d, cfg.vocab), dtype=pd)
+    return params
+
+
+def _layer(params: dict, i: int) -> dict:
+    return {k: a[i] for k, a in params["layers"].items()}
+
+
+def _kind(cfg: LMConfig, i: int) -> str:
+    return cfg.pattern[i % len(cfg.pattern)]
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _attention_full(q, k, v, positions_q, positions_kv, window):
+    """Reference-path attention: (B, S, H, D) layout; causal (+window)."""
+    dh = q.shape[3]
+    group = q.shape[2] // k.shape[2]
+    kf = k.repeat_interleave(group, dim=2)
+    vf = v.repeat_interleave(group, dim=2)
+    scale = 1.0 / math.sqrt(dh)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf.float()) * scale
+    mask = positions_kv[:, None, :] <= positions_q[:, :, None]  # (B, Sq, Skv)
+    if window is not None:
+        mask &= positions_kv[:, None, :] > positions_q[:, :, None] - window
+    logits = torch.where(mask[:, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf.float())
+    return out.to(q.dtype)
+
+
+def _decode_attention(q, ck, cv, pos, window):
+    """Grouped GQA einsum over the cache, no KV repeat.
+
+    q: (B, 1, Hq, D); ck/cv: (B, S, Hkv, D); pos: (B,) current position.
+    """
+    b, _, hq, dh = q.shape
+    s, hkv = ck.shape[1], ck.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, hkv, g, dh).float()
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, ck.float()) * scale
+    kvpos = torch.arange(s, dtype=torch.int32, device=q.device)
+    valid = kvpos[None, :] <= pos[:, None]
+    if window is not None:
+        valid &= kvpos[None, :] > pos[:, None] - window
+    logits = torch.where(valid[:, None, None], logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, cv.float())
+    return out.reshape(b, 1, hq, dh).to(q.dtype)
+
+
+def _attention(q, k, v, positions_q, positions_kv, window, cfg):
+    if cfg.use_flash_kernel and q.shape[1] == k.shape[1]:
+        o = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal=True,
+                                      window=window)
+        return o.transpose(1, 2)
+    s = q.shape[1]
+    if s > cfg.attn_chunk and s == k.shape[1]:
+        if window is not None:
+            return att.banded_attention(q, k, v, window=window,
+                                        q_chunk=cfg.attn_chunk)
+        return att.chunked_attention(q, k, v, causal=True,
+                                     q_chunk=cfg.attn_chunk,
+                                     k_chunk=cfg.attn_chunk)
+    return _attention_full(q, k, v, positions_q, positions_kv, window)
+
+
+def _attn_block(x, lp, kind, positions, cfg, cache=None, cache_pos=None):
+    """x: (B, S, D).  Returns (out, (k, v)): the new keys and values, or
+    the cache (ck, cv) after writing them at ``cache_pos`` in place."""
+    b, s, _ = x.shape
+    dh = cfg.d_head
+    h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q = h @ lp["wq"]
+    k = h @ lp["wk"]
+    v = h @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(b, s, cfg.n_q, dh)
+    k = k.reshape(b, s, cfg.n_kv, dh)
+    v = v.reshape(b, s, cfg.n_kv, dh)
+    theta = cfg.rope_theta_local if kind == "local" else cfg.rope_theta
+    q = cm.apply_rope(q, positions, theta)
+    k = cm.apply_rope(k, positions, theta)
+    window = cfg.window if kind == "local" else None
+    if cache is None:
+        o = _attention(q, k, v, positions, positions, window, cfg)
+        new_kv = (k, v)
+    else:
+        ck, cv = cache                      # (B, Smax, n_kv, dh)
+        ck.index_copy_(1, cache_pos, k.to(ck.dtype))
+        cv.index_copy_(1, cache_pos, v.to(cv.dtype))
+        o = _decode_attention(q, ck, cv, positions[:, -1], window)
+        new_kv = (ck, cv)
+    o = o.reshape(b, s, cfg.n_q * dh)
+    return o @ lp["wo"], new_kv
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+def _dense_ffn(x, lp, cfg):
+    h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return cm.swiglu(h @ lp["w_gate"], h @ lp["w_up"]) @ lp["w_down"]
+
+
+def _moe_ffn(x, lp, cfg):
+    raise NotImplementedError(_MOE_TODO)
+
+
+def _ffn(x, lp, cfg):
+    return _moe_ffn(x, lp, cfg) if cfg.moe else _dense_ffn(x, lp, cfg)
+
+
+def _logits(params, x, cfg):
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embed else params["lm_head"]
+    return x @ head.to(cfg.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward and serving
+# ---------------------------------------------------------------------------
+
+def _tokens(tokens, device) -> torch.Tensor:
+    """The token ids as a tensor on ``device`` (None: the CUDA card)."""
+    return torch.as_tensor(tokens, device=resolve_device(device))
+
+
+@torch.no_grad()
+def forward(params, tokens, cfg: LMConfig, positions=None, *, device=None):
+    """tokens (B, S) -> logits (B, S, V) (the reference also returns its
+    MoE load-balance loss, 0 for dense FFNs).  Runs on ``device`` (None:
+    the CUDA card), where the parameters lie."""
+    tokens = _tokens(tokens, device)
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s)
+    x = params["embed"].to(cfg.compute_dtype)[tokens]
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        a, _ = _attn_block(x, lp, _kind(cfg, i), positions, cfg)
+        x = x + a
+        x = x + _ffn(x, lp, cfg)
+    return _logits(params, x, cfg)
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int,
+               device=None) -> dict:
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+@torch.no_grad()
+def prefill(params, tokens, cfg: LMConfig, max_seq: Optional[int] = None, *,
+            device=None):
+    """Returns (cache filled for s positions, last-token logits (B, V)).
+    Runs on ``device`` (None: the CUDA card), where the parameters lie."""
+    tokens = _tokens(tokens, device)
+    b, s = tokens.shape
+    if max_seq is None:
+        max_seq = s
+    elif max_seq < s:
+        raise ValueError(f"max_seq={max_seq} is shorter than the prompt "
+                         f"(s={s}); the cache would truncate live tokens")
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    x = params["embed"].to(cfg.compute_dtype)[tokens]
+    cache = init_cache(cfg, b, max_seq, device=tokens.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        a, (k, v) = _attn_block(x, lp, _kind(cfg, i), positions, cfg)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+        x = x + a
+        x = x + _ffn(x, lp, cfg)
+    cache["pos"].fill_(s)
+    return cache, _logits(params, x[:, -1:], cfg)[:, 0]
+
+
+@torch.no_grad()
+def decode_step(params, cache, tokens, cfg: LMConfig, *, device=None):
+    """One decode step: tokens (B,) -> (cache, logits (B, V)).  The cache's
+    keys and values are updated in place; ``pos`` is a new tensor.  Runs on
+    ``device`` (None: the CUDA card), where the parameters and cache lie."""
+    tokens = _tokens(tokens, device)
+    pos = cache["pos"]                                   # (B,)
+    positions = pos[:, None]                             # (B, 1)
+    x = params["embed"].to(cfg.compute_dtype)[tokens[:, None]]
+    cache_pos = pos[:1].long()                           # uniform batch pos
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        a, _ = _attn_block(x, lp, _kind(cfg, i), positions, cfg,
+                           cache=(cache["k"][i], cache["v"][i]),
+                           cache_pos=cache_pos)
+        x = x + a
+        x = x + _ffn(x, lp, cfg)
+    logits = _logits(params, x, cfg)[:, 0]
+    return {"k": cache["k"], "v": cache["v"], "pos": pos + 1}, logits

@@ -6,7 +6,7 @@ the JAX package's phi on the conformance corpus and an R-MAT graph, with
 the ``OocStats`` counters that both packages define the same way equal.
 The port runs on the CPU here (``device="cpu"``); comparisons are exact.
 Also pinned: the port imports neither ``jax`` nor ``repro``, its default
-device is the CUDA card, and not-yet-ported arguments raise.
+device is the CUDA card, and not-yet-ported arguments and configs raise.
 """
 
 import ast
@@ -238,9 +238,21 @@ def test_port_runs_with_jax_blocked():
         "from repro_torch import interop\n"
         "import repro_torch.kernels.frontier_peel.kernel\n"
         "import repro_torch.kernels.triangle_count.ops\n"
+        "import repro_torch.kernels.embedding_bag.ops\n"
+        "import dataclasses, torch\n"
+        "from repro_torch.configs import registry\n"
+        "from repro_torch.configs.reduced import reduced_lm\n"
+        "from repro_torch.launch import serve\n"
+        "from repro_torch.models import transformer as T\n"
         "e = np.array([[0,1],[0,2],[1,2],[2,3],[1,3],[0,3],[3,4]])\n"
         "phi = truss_decompose(5, e, device='cpu')\n"
         "assert (phi == serial.alg2_truss(5, e)).all(), phi\n"
+        "cfg = dataclasses.replace(reduced_lm(registry.get_config("
+        "'gemma3-4b')), use_flash_kernel=True, window=8)\n"
+        "p = T.init_params(torch.Generator().manual_seed(0), cfg)\n"
+        "toks = np.arange(2 * 80).reshape(2, 80) % cfg.vocab\n"
+        "cache, last = T.prefill(p, toks, cfg, max_seq=84, device='cpu')\n"
+        "assert last.shape == (2, cfg.vocab) and bool(last.isfinite().all())\n"
         "print('ok', phi.tolist())\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
@@ -268,15 +280,53 @@ def test_port_sources_import_neither_jax_nor_repro():
 
 
 def test_default_device_needs_cuda(monkeypatch):
+    from repro_torch.configs import registry
+    from repro_torch.configs.reduced import reduced_lm
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     e = np.array([[0, 1], [1, 2], [0, 2]])
+    cfg = reduced_lm(registry.get_config("gemma3-4b"))
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = np.zeros((1, 4), np.int32)
     for call in (lambda: tpeel.truss_decompose(3, e),
                  lambda: tpeel.kmax_truss(3, e),
                  lambda: tbu.bottom_up_decompose(3, e, 64),
                  lambda: ttd.top_down_decompose(3, e),
-                 lambda: tpeel.truss_decompose(3, e, device="cuda")):
+                 lambda: tpeel.truss_decompose(3, e, device="cuda"),
+                 lambda: T.prefill(params, toks, cfg),
+                 lambda: T.forward(params, toks, cfg),
+                 lambda: serve.generate(params, toks, cfg, 2, 6),
+                 lambda: serve.main(["--new-tokens", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "moonshot-v1-16b-a3b"])
+def test_moe_configs_raise(arch):
+    """The MoE LM configs wait for a later slice: the registry, a MoE
+    config's parameters and its FFN raise NotImplementedError."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.reduced import reduced_lm
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    with pytest.raises(NotImplementedError, match="MoE"):
+        registry.get_config(arch)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        serve.main(["--arch", arch, "--device", "cpu"])
+    moe = dataclasses.replace(reduced_lm(registry.get_config("granite-8b")),
+                              n_experts=4)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        T.init_params(torch.Generator().manual_seed(0), moe)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        moe.param_count()
+    with pytest.raises(NotImplementedError, match="MoE"):
+        T._moe_ffn(torch.zeros((1, 2, 64)), {}, moe)
 
 
 @pytest.mark.parametrize("kw", [
