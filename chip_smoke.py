@@ -8,14 +8,18 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
 
 1. device: the card's name and power limit, torch and CUDA versions, and the
    build of every CUDA kernel under ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, all started together);
+   per source, all started together); for every B3 instantiation, its
+   registers, spills and shared memory (ptxas) and its tensor-core
+   instructions (``cuobjdump -sass``): the bf16 D = 256 one must have some
+   and spill nothing;
 2. every kernel against its plain PyTorch version on the card (B1, B2
    exact; B3, B4 within the tolerances stated at ``B3_F32_TOL``,
    ``B3_TOL``, ``B4_TOL``), with its time, its bound and, where one PyTorch
    call computes the same function, that call's time: B3 flash attention
    on the small float32 and bf16 cases of ``B3_CASES`` (every head width it
    instantiates, ragged lengths, narrow windows, non-causal), then timed at
-   gemma3-4b's head shapes (causal and window 1024, bf16); B4 embedding bag
+   gemma3-4b's head shapes (causal and window 1024, bf16) beside its time
+   before the tensor-core design (run E, ``B3_RUN_E_MS``); B4 embedding bag
    at DIN's table and batch shapes;
 3. in-memory route: ``truss_decompose`` on R-MAT scale 17;
 4. bottom-up route: ``truss_decompose(engine="bottom-up", memory_budget=
@@ -55,6 +59,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -72,10 +78,15 @@ BF16_FLOPS = 989e12
 # B3 against its plain version in float32: the two sum the same terms in
 # other orders (as the CPU tests hold the plain version to the JAX kernel).
 B3_F32_TOL = dict(rtol=2e-5, atol=2e-5)
-# B3 in bf16: both compute in float32 and round the result to bf16 once, so
-# where the float32 values straddle a rounding point they differ by one bf16
-# step, at most 2^-7 |o| (|o| reaches max |v|, about 4-5 for N(0, 1) values:
-# a step of 2^-6 there); atol covers outputs near 0.
+# B3 in bf16: the plain version computes in float32 and rounds the result to
+# bf16 once.  The kernel multiplies V by P split into two bf16 terms (P_hi +
+# P_lo carry about 16 bits of p, an error near 2^-17 |p|), accumulates in
+# float32 and rounds once, so the two differ where their float32 values
+# straddle a rounding point: one bf16 step, at most 2^-7 |o| (|o| reaches
+# max |v|, about 4-5 for N(0, 1) values: a step of 2^-6 there); atol covers
+# outputs near 0.  P rounded once to bf16 (an error of up to 2^-8 |p|) took
+# a CPU model of the kernel past this limit on a case of B3_CASES, where the
+# split stays inside it (tests/test_torch_flash_attention.py).
 B3_TOL = dict(rtol=2 ** -7, atol=2e-3)
 # B3 float32 cases (B, Hq, Hkv, S, D, window, causal): every accumulator
 # width (D / 16 up to 1, 2, 4, 8, 16 groups, some partly used), sequence
@@ -86,6 +97,15 @@ B3_CASES = ((2, 4, 2, 200, 64, None, True), (1, 8, 8, 130, 128, None, True),
             (1, 4, 2, 300, 48, 20, True), (1, 4, 2, 190, 80, 96, True),
             (1, 8, 4, 1100, 256, 1024, True), (1, 8, 4, 333, 192, 20, True),
             (1, 4, 2, 190, 16, 40, False), (1, 4, 4, 150, 128, None, False))
+# B3 at gemma3-4b's head shapes before the tensor-core design, (B, window):
+# ms on an H100 80GB HBM3 at 700 W (PERF.md, run E), printed beside the new
+B3_RUN_E_MS = {(1, None): 1.3122, (1, 1024): 0.8989, (8, None): 7.2924,
+               (8, 1024): 5.4161}
+B3_DESIGN = ("bf16: tensor cores, wgmma m64n64k16 (S = Q K^T, both from "
+             "shared memory) and m64nDk16 (O += P V, P split into bf16 P_hi + "
+             "P_lo in registers), 128 query rows a block in two warpgroups, "
+             "64-key K/V tiles in a two-stage cp.async ring, 128-byte "
+             "swizzle; float32: CUDA-core FMAs")
 # B4 in float32: sums of L = 100 rows of N(0, 1) values in other orders.
 # A recursive float32 sum errs by at most about L 2^-24 sum|x| (~5e-4 for
 # sum|x| ~ 80); a sum that cancels to near 0 is held by atol, not rtol.
@@ -225,6 +245,74 @@ def b4_bound_ms(table, idx) -> float:
     return (B * L * row + B * L * 4 + B * row) / HBM_BYTES_PER_S * 1e3
 
 
+def ptxas_kernels(log: str) -> dict:
+    """Per entry function of a ptxas -v report: registers, spill stores,
+    stack frame and static shared memory, in bytes."""
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        num = lambda pat: int((re.search(pat, chunk) or [0, 0])[1])
+        out[name] = dict(registers=num(r"Used (\d+) registers"),
+                         spill_stores=num(r"(\d+) bytes spill stores"),
+                         stack=num(r"(\d+) bytes stack frame"),
+                         static_smem=num(r"(\d+) bytes smem"))
+    return out
+
+
+def sass_mma_counts(lib: Path) -> dict:
+    """Per kernel of a built library: the HGMMA (wgmma) and HMMA (mma.sync)
+    instructions of its SASS, from ``cuobjdump -sass``."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m[1]
+            counts[name] = dict(hgmma=0, hmma=0)
+        elif name is not None:
+            counts[name]["hgmma"] += "HGMMA" in line
+            counts[name]["hmma"] += "HMMA" in line
+    return counts
+
+
+def b3_build_check(torch, build, ak) -> dict:
+    """Print what ptxas made of every B3 instantiation and its tensor-core
+    instructions; raise unless the bf16 D = 256 instantiation runs on tensor
+    cores and spills nothing.  Returns that instantiation's figures."""
+    regs = ptxas_kernels(build.report("flash_attention"))
+    mma = sass_mma_counts(build.target("flash_attention"))
+    rows = {}
+    for name, r in regs.items():
+        m = re.search(r"(tc|f32)_kernelILi(\d+)E", name)
+        if m is None:
+            continue
+        route, n = m[1], int(m[2])
+        d, dtype = (n, torch.bfloat16) if route == "tc" else (16 * n,
+                                                              torch.float32)
+        r.update(mma.get(name, dict(hgmma=0, hmma=0)),
+                 dynamic_smem=ak.smem_bytes(d, dtype))
+        rows[(route, d)] = r
+    for (route, d), r in sorted(rows.items()):
+        say(f"[1]   B3 {'bf16 tensor-core' if route == 'tc' else 'float32'} "
+            f"D <= {d}: {r['registers']} registers, {r['spill_stores']} "
+            f"bytes spill stores, {r['stack']} bytes stack, "
+            f"{r['dynamic_smem']} bytes dynamic shared memory, HGMMA "
+            f"{r['hgmma']}, HMMA {r['hmma']}")
+    top = rows.get(("tc", 256))
+    if top is None:
+        raise AssertionError("no bf16 D = 256 instantiation of B3 in the "
+                             "ptxas report")
+    if top["hgmma"] + top["hmma"] == 0:
+        raise AssertionError("B3's bf16 D = 256 instantiation has no tensor-"
+                             "core instruction in its SASS")
+    if top["spill_stores"]:
+        raise AssertionError(f"B3's bf16 D = 256 instantiation spills "
+                             f"{top['spill_stores']} bytes")
+    return top
+
+
 class Probe:
     """Wraps a kernel wrapper for the main path: brackets every call with
     CUDA events (device time), sums the bound of every call, and keeps the
@@ -336,6 +424,7 @@ def main(argv) -> int:
         for line in log.splitlines():
             if "Used" in line:
                 say(f"[1]   {name}: {line.strip()}")
+    b3_tc = b3_build_check(torch, build, ak)
 
     # -- phase 2: kernels against their plain versions -----------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -438,8 +527,9 @@ def main(argv) -> int:
             bound, by = b3_bound(q, k, window)
             say(f"[2] B3 flash_attention (B,Hq,S,D)={tuple(q.shape)} Hkv "
                 f"{k.shape[1]} bf16 window {window}: max abs err {err:.3g} "
-                f"(tol {B3_TOL}); kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
-                f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
+                f"(tol {B3_TOL}); kernel {ms:.4f} ms (run E "
+                f"{B3_RUN_E_MS[B, window]:.4f} ms), plain {plain:.4f} ms, "
+                f"sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by})")
         del q, k, v
 
     table = torch.randn((10_000_000, 18), generator=gen, device=dev)
@@ -773,7 +863,7 @@ def main(argv) -> int:
     b3 = max(b3_rows, key=lambda r: r["bound_ms"])
     b3.update(max_abs_err=max(r["max_abs_err"] for r in b3_rows),
               total_ms=b3_ms, total_bound_ms=p3.bound_ms,
-              by_window=by_window)
+              by_window=by_window, design=B3_DESIGN, bf16_d256=b3_tc)
     kernels.append(b3)
     kernels.append(b4)
     say(f"[all] wall {time.perf_counter() - t_all:.1f} s; {smi}")

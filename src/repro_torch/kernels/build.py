@@ -6,7 +6,8 @@ seconds).  Libraries go to ``build/kernels/`` at the repository root, named
 by a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one is reused.  :func:`build` compiles several sources in parallel
 (one ``nvcc`` each, all started together); :func:`library` builds one on
-first use.  Nothing is compiled when a module is imported.
+first use; :func:`report` reads the ptxas report (``-Xptxas -v``) kept
+beside a library.  Nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -68,10 +69,17 @@ def build(names=SOURCES) -> dict:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
+        out.with_suffix(".log").write_text(log)
         reports[name] = log
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def report(name: str) -> str:
+    """The compiler's report of the current build of ``csrc/<name>.cu``
+    (registers, spills and shared memory of every kernel)."""
+    return target(name).with_suffix(".log").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:
