@@ -11,10 +11,15 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    per source, all started together); for every B3 instantiation, its
    registers, spills and shared memory (ptxas) and its tensor-core
    instructions (``cuobjdump -sass``): the bf16 D = 256 one must have some
-   and spill nothing;
+   and spill nothing; the same for B1 and B2, whose SASS must hold int8 MMA
+   instructions (B2) and neither of which may spill;
 2. every kernel against its plain PyTorch version on the card (B1, B2
-   exact; B3, B4 within the tolerances stated at ``B3_F32_TOL``,
-   ``B3_TOL``, ``B4_TOL``), with its time, its bound and, where one PyTorch
+   exact; B1's live-row round also with fewer rows than its buffer, its
+   compacted rows compared as a multiset per lane, at shapes that reach
+   its global-state branch and its several-lanes-a-block branch; B2 on
+   symmetric and non-symmetric matrices, timed also with the A^T copy of
+   ``symmetric=False``; B3, B4 within the tolerances stated at
+   ``B3_F32_TOL``, ``B3_TOL``, ``B4_TOL``), with its time, its bound and, where one PyTorch
    call computes the same function, that call's time: B3 flash attention
    on the small float32 and bf16 cases of ``B3_CASES`` (every head width it
    instantiates, ragged lengths, narrow windows, non-causal), then timed at
@@ -50,8 +55,10 @@ beside it, the script exits non-zero and prints no result.
 
 ``--profile`` also traces each phase of the main path with
 ``torch.profiler`` (CUDA activity only) and prints the device's busy time,
-its idle share and the kernels that took the most device time; the walls of
-that run include the tracing.
+its idle share and the kernels that took the most device time, and B1's and
+B2's own kernel time over the truss path from the trace (the plain run's
+sums of ``Probe`` events include host gaps); the walls of that run include
+the tracing.
 """
 
 from __future__ import annotations
@@ -101,6 +108,19 @@ B3_CASES = ((2, 4, 2, 200, 64, None, True), (1, 8, 8, 130, 128, None, True),
 # ms on an H100 80GB HBM3 at 700 W (PERF.md, run E), printed beside the new
 B3_RUN_E_MS = {(1, None): 1.3122, (1, 1024): 0.8989, (8, None): 7.2924,
                (8, 1024): 5.4161}
+B1_DESIGN = ("one cooperative launch a round over each lane's live rows: "
+             "elementwise sup'/alive' and the state packed as two bit "
+             "planes, a grid barrier, then the lane's state in shared "
+             "memory, 4 rows a thread and 4,096 a block, one atomicAdd a "
+             "block for the compacted rows' offsets, atomicSub grouped by "
+             "__match_any_sync")
+B2_DESIGN = ("int8 tensor cores: wgmma m64n128k32 u8 x u8 -> s32, 128 x 128 "
+             "output tiles in two warpgroups, 128-byte k-slabs in a three-"
+             "stage cp.async ring under the 128-byte swizzle, B operand from "
+             "the rows of A^T (A's own rows when symmetric), mask epilogue")
+# the B1 and B2 kernels' names in a profiler trace
+B1_TRACE_NAME = "frontier_peel_live_round"
+B2_TRACE_NAME = "triangle_count_kernel"
 B3_DESIGN = ("bf16: tensor cores, wgmma m64n64k16 (S = Q K^T, both from "
              "shared memory) and m64nDk16 (O += P V, P split into bf16 P_hi + "
              "P_lo in registers), 128 query rows a block in two warpgroups, "
@@ -204,11 +224,21 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def b1_bound_ms(B: int, E: int, T: int) -> float:
-    """Least time of one fused round: the triangle rows (12 B per row) and
-    the five (B, E) int32 arrays (sup, alive, rm in; sup', alive' out), each
-    moved once over the memory rate."""
-    return (12 * B * T + 20 * B * E) / HBM_BYTES_PER_S * 1e3
+def b1_bound_ms(B: int, E: int, rows_read: int, rows_written: int) -> float:
+    """Least time of one fused round: the triangle rows it reads and the
+    live rows it writes (12 bytes a row) and the five (B, E) int32 arrays
+    (sup, alive, rm in; sup', alive' out), each moved once over the memory
+    rate."""
+    return (12 * (rows_read + rows_written) + 20 * B * E) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def pow4_ceil(x: int) -> int:
+    """The pow4 capacity the padded launch shapes used (at least 1)."""
+    c = 1
+    while c < x:
+        c *= 4
+    return c
 
 
 def b2_bound(n: int) -> tuple[float, str]:
@@ -260,8 +290,9 @@ def ptxas_kernels(log: str) -> dict:
 
 
 def sass_mma_counts(lib: Path) -> dict:
-    """Per kernel of a built library: the HGMMA (wgmma) and HMMA (mma.sync)
-    instructions of its SASS, from ``cuobjdump -sass``."""
+    """Per kernel of a built library: the HGMMA (floating-point wgmma),
+    HMMA (floating-point mma.sync), IGMMA (integer wgmma) and IMMA (integer
+    mma.sync) instructions of its SASS, from ``cuobjdump -sass``."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -270,10 +301,10 @@ def sass_mma_counts(lib: Path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m[1]
-            counts[name] = dict(hgmma=0, hmma=0)
+            counts[name] = dict(hgmma=0, hmma=0, igmma=0, imma=0)
         elif name is not None:
-            counts[name]["hgmma"] += "HGMMA" in line
-            counts[name]["hmma"] += "HMMA" in line
+            for op in ("HGMMA", "HMMA", "IGMMA", "IMMA"):
+                counts[name][op.lower()] += op in line
     return counts
 
 
@@ -291,7 +322,7 @@ def b3_build_check(torch, build, ak) -> dict:
         route, n = m[1], int(m[2])
         d, dtype = (n, torch.bfloat16) if route == "tc" else (16 * n,
                                                               torch.float32)
-        r.update(mma.get(name, dict(hgmma=0, hmma=0)),
+        r.update(mma.get(name, dict(hgmma=0, hmma=0, igmma=0, imma=0)),
                  dynamic_smem=ak.smem_bytes(d, dtype))
         rows[(route, d)] = r
     for (route, d), r in sorted(rows.items()):
@@ -313,19 +344,92 @@ def b3_build_check(torch, build, ak) -> dict:
     return top
 
 
+def b1b2_build_check(build) -> dict:
+    """Print what ptxas made of B1 and B2 and B2's int8 MMA instructions;
+    raise if either spills or B2 has no int8 MMA instruction.  Returns each
+    kernel's figures."""
+    out = {}
+    for src, trace, int8 in (("frontier_peel", B1_TRACE_NAME, False),
+                             ("triangle_count", B2_TRACE_NAME, True)):
+        regs = ptxas_kernels(build.report(src))
+        mma = sass_mma_counts(build.target(src))
+        for name, r in regs.items():
+            if trace not in name:
+                continue
+            r.update(mma.get(name, dict(hgmma=0, hmma=0, igmma=0, imma=0)))
+            say(f"[1]   {src} {trace}: {r['registers']} registers, "
+                f"{r['spill_stores']} bytes spill stores, {r['stack']} bytes "
+                f"stack, {r['static_smem']} bytes static shared memory, "
+                f"IGMMA {r['igmma']}, IMMA {r['imma']}, HGMMA {r['hgmma']}, "
+                f"HMMA {r['hmma']}")
+            if r["spill_stores"]:
+                raise AssertionError(f"{src} spills {r['spill_stores']} "
+                                     f"bytes")
+            if int8 and r["igmma"] + r["imma"] == 0:
+                raise AssertionError(f"{src} has no int8 MMA instruction in "
+                                     f"its SASS")
+            out[src] = r
+        if src not in out:
+            raise AssertionError(f"no {trace} in the ptxas report of {src}")
+    return out
+
+
+def row_key(torch, rows):
+    """One int64 per (e0, e1, e2) row (ids below 2^21), for comparing row
+    lists as multisets."""
+    r = rows.to(torch.int64)
+    return (r[:, 0] << 42) | (r[:, 1] << 21) | r[:, 2]
+
+
+def check_b1_live(torch, fk, fref, args, n_rows, where: str) -> dict:
+    """B1's live-row round against its plain version on the same inputs:
+    sup' and alive' exactly, each lane's compacted rows as a multiset,
+    n_rows_out exactly.  Returns the rows read and written and the max
+    abs error over sup', alive' and n_rows_out (1 for a lane whose rows
+    differ)."""
+    sup, alive, rm, tris = args
+    tris_out = torch.full_like(tris, -1)
+    n_out = torch.full_like(n_rows, -1)
+    got = fk.fused_round_live(sup, alive, rm, tris, n_rows, tris_out, n_out)
+    want_s, want_a, want_rows, want_n = fref.fused_round_live(
+        sup, alive, rm, tris, n_rows)
+    torch.cuda.synchronize()
+    errs = {"sup'": int((got[0] - want_s).abs().max()),
+            "alive'": int((got[1] - want_a).abs().max()),
+            "n_rows_out": int((n_out - want_n).abs().max()),
+            "rows": 0}
+    for b, (c, c_got) in enumerate(zip(want_n.tolist(), n_out.tolist())):
+        if c != c_got or not torch.equal(
+                torch.sort(row_key(torch, tris_out[b, :c]))[0],
+                torch.sort(row_key(torch, want_rows[b, :c]))[0]):
+            errs["rows"] = 1
+    if any(errs.values()):
+        raise AssertionError(f"B1 fused_round_live differs from the plain "
+                             f"version {where}: max abs errors {errs}")
+    return dict(rows_read=int(n_rows.clamp(0, tris.shape[1]).sum()),
+                rows_written=int(want_n.sum()),
+                max_abs_err=float(max(errs.values())))
+
+
 class Probe:
     """Wraps a kernel wrapper for the main path: brackets every call with
-    CUDA events (device time), sums the bound of every call, and keeps the
-    inputs of the largest call of each ``group`` (a key of the call's
-    arguments) to check and time the kernel on afterwards."""
+    CUDA events (the device's clock, host gaps between the events included),
+    sums the bound of every call, and keeps the inputs of the largest call
+    of each ``group`` (a key of the call's arguments) to check and time the
+    kernel on afterwards.  ``note`` records something of each call right
+    after it (kept in ``notes``); ``keep`` says what to keep of the largest
+    call's arguments (default: the arguments themselves; a buffer that the
+    path overwrites later must be cloned)."""
 
     def __init__(self, torch, module, name: str, size, bound,
-                 group=lambda *a, **kw: None):
+                 group=lambda *a, **kw: None, note=None, keep=None):
         self.torch, self.module, self.name = torch, module, name
         self.fn = getattr(module, name)
         self.size, self.bound, self.group = size, bound, group
-        self.events, self.bound_ms = [], 0.0
+        self.note, self.keep = note, keep
+        self.events, self.bound_ms, self.notes = [], 0.0, []
         self.largest: dict = {}
+        self.sizes: dict = {}
         self.shapes: dict = {}
         setattr(module, name, self)
 
@@ -337,13 +441,14 @@ class Probe:
         end.record()
         self.events.append((start, end))
         self.bound_ms += self.bound(*args, **kw)
+        if self.note is not None:
+            self.notes.append(self.note(*args, **kw))
         key = tuple(tuple(a.shape) for a in args) + tuple(sorted(kw.items()))
         self.shapes[key] = self.shapes.get(key, 0) + 1
-        g = self.group(*args, **kw)
-        if g not in self.largest or \
-                self.size(*args, **kw) > self.size(*self.largest[g][0],
-                                                   **self.largest[g][1]):
-            self.largest[g] = (args, kw)
+        g, size = self.group(*args, **kw), self.size(*args, **kw)
+        if g not in self.largest or size > self.sizes[g]:
+            kept = args if self.keep is None else self.keep(*args, **kw)
+            self.largest[g], self.sizes[g] = (kept, kw), size
         return out
 
     def close(self) -> float:
@@ -425,6 +530,7 @@ def main(argv) -> int:
             if "Used" in line:
                 say(f"[1]   {name}: {line.strip()}")
     b3_tc = b3_build_check(torch, build, ak)
+    b1b2 = b1b2_build_check(build)
 
     # -- phase 2: kernels against their plain versions -----------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -441,8 +547,15 @@ def main(argv) -> int:
         tris[:, : T // 16, 2] = E         # rows with one corner on E
         return sup, alive, rm, tris
 
+    # the last two: a lane's state past shared memory (E > 819,200, the
+    # global bit planes), and more lanes than the card has SMs (a block
+    # serves several lanes)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if 160 <= sms:
+        raise AssertionError(f"{sms} SMs: B = 160 no longer exceeds the grid")
     for B, E, T in ((1, 4096, 1 << 14), (8, 4096, 1 << 16),
-                    (1, 65536, 1 << 20), (8, 65536, 1 << 20)):
+                    (1, 65536, 1 << 20), (8, 65536, 1 << 20),
+                    (1, 1 << 20, 1 << 24), (160, 4096, 1 << 14)):
         args = b1_inputs(B, E, T)
         got, want = fk.fused_round(*args), fref.fused_round(*args)
         torch.cuda.synchronize()
@@ -450,32 +563,60 @@ def main(argv) -> int:
             if not torch.equal(g_, w_):
                 raise AssertionError(f"B1 fused_round differs from its plain "
                                      f"version at B={B} E={E} T={T}")
-        ms = time_ms(torch, lambda: fk.fused_round(*args), 20)
-        plain = time_ms(torch, lambda: fref.fused_round(*args), 5)
-        say(f"[2] B1 fused_round B={B} E={E} T={T}: equal; kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound "
-            f"{b1_bound_ms(B, E, T):.4f} ms (bytes)")
-        del args, got, want
+        # the live-row round over every row, then over fewer rows than the
+        # buffer holds (lane 0 fewer again)
+        for n in (T, T // 3):
+            n_rows = torch.full((B,), n, dtype=torch.int32, device=dev)
+            n_rows[0] = n - 5
+            rw = check_b1_live(torch, fk, fref, args, n_rows,
+                               f"at B={B} E={E} T={T} n_rows {n}")
+            t_out, n_out = torch.empty_like(args[3]), torch.empty_like(n_rows)
+            ms = time_ms(torch, lambda: fk.fused_round_live(
+                *args, n_rows, t_out, n_out), 20)
+            plain = time_ms(torch, lambda: fref.fused_round_live(
+                *args, n_rows), 5)
+            say(f"[2] B1 fused_round_live B={B} E={E} T={T} n_rows {n}: "
+                f"equal (rows read {rw['rows_read']}, written "
+                f"{rw['rows_written']}); kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, bound "
+                f"{b1_bound_ms(B, E, rw['rows_read'], rw['rows_written']):.4f}"
+                f" ms (bytes)")
+        del args, got, want, t_out
 
     for n in (256, 1000, 2048, 4096):
         A = (torch.rand((n, n), generator=gen, device=dev) < 0.15).to(
             torch.uint8)
         A = torch.triu(A, 1)
         A = A + A.T
+        want = tref.support_dense(A)
+        for sym in (True, False):       # the path passes symmetric=True
+            got = tk.triangle_count(A, symmetric=sym)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"B2 triangle_count differs from its "
+                                     f"plain version at n={n} symmetric "
+                                     f"{sym}")
+        Af = A.float()
+        ms = time_ms(torch, lambda: tk.triangle_count(A, symmetric=True), 20)
+        general = time_ms(torch, lambda: tk.triangle_count(A), 20)
+        plain = time_ms(torch, lambda: tref.support_dense(A), 10)
+        lib = time_ms(torch, lambda: torch.matmul(Af, Af).mul_(Af), 10)
+        bound, by = b2_bound(n)
+        say(f"[2] B2 triangle_count n={n}: equal (symmetric and general); "
+            f"kernel {ms:.4f} ms (with the A^T copy of symmetric=False "
+            f"{general:.4f} ms), plain {plain:.4f} ms, matmul+mask "
+            f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
+        del A, Af, got, want
+    for n in (1000, 2048):      # not symmetric, with a diagonal
+        A = (torch.rand((n, n), generator=gen, device=dev) < 0.3).to(
+            torch.uint8)
         got, want = tk.triangle_count(A), tref.support_dense(A)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"B2 triangle_count differs from its plain "
-                                 f"version at n={n}")
-        Af = A.float()
-        ms = time_ms(torch, lambda: tk.triangle_count(A), 20)
-        plain = time_ms(torch, lambda: tref.support_dense(A), 10)
-        lib = time_ms(torch, lambda: torch.matmul(Af, Af).mul_(Af), 10)
-        bound, by = b2_bound(n)
-        say(f"[2] B2 triangle_count n={n}: equal; kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, matmul+mask {lib:.4f} ms, bound "
-            f"{bound:.4f} ms ({by})")
-        del A, Af, got, want
+                                 f"version on a non-symmetric A, n={n}")
+        say(f"[2] B2 triangle_count non-symmetric n={n}: equal")
+        del A, got, want
 
     def sdpa(q, k, v, window):
         """The library yardstick for B3: one scaled_dot_product_attention
@@ -574,13 +715,19 @@ def main(argv) -> int:
             mod.LAUNCHES = 0
 
     zero_counts()
-    p1 = Probe(torch, fk, "fused_round",
-               size=lambda s, a, r, t: s.numel() + t.numel(),
-               bound=lambda s, a, r, t: b1_bound_ms(s.shape[0], s.shape[1],
-                                                    t.shape[1]))
-    p2 = Probe(torch, tk, "triangle_count", size=lambda A: A.numel(),
-               bound=lambda A: b2_bound(A.shape[0])[0])
+    # B1's bound counts the rows each call reads and writes, known on the
+    # device only: the counts are summed after each call, read at the end
+    p1 = Probe(torch, fk, "fused_round_live",
+               size=lambda s, a, r, t, n, to, no: s.numel() + t.numel(),
+               bound=lambda *a: 0.0,
+               note=lambda s, a, r, t, n, to, no: (
+                   s.shape[0], s.shape[1], t.shape[1], n.sum(), no.sum()),
+               keep=lambda s, a, r, t, n, to, no: (s, a, r, t.clone(),
+                                                   n.clone()))
+    p2 = Probe(torch, tk, "triangle_count", size=lambda A, **kw: A.numel(),
+               bound=lambda A, **kw: b2_bound(A.shape[0])[0])
     phase_launches = {}
+    trace_ms: dict = {}        # --profile: device ms and calls by kernel name
 
     def run_phase(tag, fn):
         torch.cuda.synchronize()
@@ -611,6 +758,9 @@ def main(argv) -> int:
                     ns, cnt = per_name.get(e.name(), (0, 0))
                     per_name[e.name()] = (ns + e.duration_ns(), cnt + 1)
             busy = sum(ns for ns, _ in per_name.values()) / 1e9
+            for name, (ns, cnt) in per_name.items():
+                ms0, cnt0 = trace_ms.get(name, (0.0, 0))
+                trace_ms[name] = (ms0 + ns / 1e6, cnt0 + cnt)
             if busy == 0:
                 say(f"[{tag}] profiled: device busy time not measured (the "
                     f"trace holds no device events)")
@@ -691,11 +841,39 @@ def main(argv) -> int:
                                  f"path")
     if (len(p1.events), len(p2.events)) != tuple(launches.values()):
         raise AssertionError("launch counters disagree with the calls seen")
-    say(f"[truss path] launches {launches}, device ms in kernel calls "
+    # rows each B1 call read and wrote, and the padded capacity (pow4 of its
+    # buffer) that the sweep of every row before the live-row design read
+    reads = torch.stack([nt[3] for nt in p1.notes]).tolist()
+    writes = torch.stack([nt[4] for nt in p1.notes]).tolist()
+    b1_path = dict(
+        rows_read=int(sum(reads)), rows_written=int(sum(writes)),
+        padded_rows=sum(B * pow4_ceil(T) for B, _, T, _, _ in p1.notes),
+        bound_ms=sum(b1_bound_ms(B, E, r, w) for (B, E, _, _, _), r, w
+                     in zip(p1.notes, reads, writes)))
+    say(f"[truss path] launches {launches}, device ms between each call's "
+        f"events (host gaps included) "
         f"{ {k: round(v, 3) for k, v in total_ms.items()} }, summed bounds "
-        f"B1 {p1.bound_ms:.3f} ms B2 {p2.bound_ms:.3f} ms")
+        f"B1 {b1_path['bound_ms']:.3f} ms B2 {p2.bound_ms:.3f} ms")
+    say(f"[truss path] B1 rows read {b1_path['rows_read']:,}, written "
+        f"{b1_path['rows_written']:,}; the padded capacities of the same "
+        f"calls {b1_path['padded_rows']:,}")
     say(f"[truss path] B1 launch shapes (count): "
         f"{sorted(p1.shapes.items(), key=lambda kv: -kv[1])[:8]}")
+    trace_total = {}
+    if profile:
+        for key, want_name in (("frontier_peel", B1_TRACE_NAME),
+                               ("triangle_count", B2_TRACE_NAME)):
+            names = {nm: v for nm, v in trace_ms.items() if want_name in nm}
+            say(f"[truss path] profiler: {key} kernels "
+                f"{ {nm[:60]: (round(v[0], 3), v[1]) for nm, v in names.items()} }")
+            if len(names) != 1:
+                raise AssertionError(f"the trace holds {len(names)} kernel "
+                                     f"names of {key}, not one")
+            (ms_, cnt_), = names.values()
+            if cnt_ != launches[key]:
+                raise AssertionError(f"the trace holds {cnt_} {key} kernels, "
+                                     f"the counter {launches[key]}")
+            trace_total[key] = ms_
 
     # -- phase 6: digests -----------------------------------------------------
     for name, phi in (("rmat17", phi17), ("rmat15", phi15),
@@ -793,22 +971,39 @@ def main(argv) -> int:
 
     # -- kernels on the largest inputs the main path gave them ---------------
     kernels = []
-    args, _ = p1.largest[None]
-    got, want = fk.fused_round(*args), fref.fused_round(*args)
-    err = max(int((g_ - w_).abs().max()) for g_, w_ in zip(got, want))
-    B, E, T = args[0].shape[0], args[0].shape[1], args[3].shape[1]
+    (sup, alive, rm, tris, n_rows), _ = p1.largest[None]
+    args = (sup, alive, rm, tris)
+    B, E, T = sup.shape[0], sup.shape[1], tris.shape[1]
+    rw = check_b1_live(torch, fk, fref, args, n_rows,
+                       f"on the path's largest call (B={B} E={E} T={T})")
+    err = rw.pop("max_abs_err")
+    t_out, n_out = torch.empty_like(tris), torch.empty_like(n_rows)
     kernels.append(dict(
-        name="frontier_peel.fused_round", route="cuda",
+        name="frontier_peel.fused_round_live", route="cuda",
         source="src/repro_torch/csrc/frontier_peel.cu",
         replaces="src/repro/kernels/frontier_peel/kernel.py:115",
-        launches=launches["frontier_peel"], max_abs_err=float(err),
-        ms=time_ms(torch, lambda: fk.fused_round(*args), 20),
-        plain_ms=time_ms(torch, lambda: fref.fused_round(*args), 5),
-        bound_ms=b1_bound_ms(B, E, T), bound_by="bytes", library_ms=None,
-        shape=[B, E, T], total_ms=total_ms["frontier_peel"],
-        total_bound_ms=p1.bound_ms))
-    (A,), _ = p2.largest[None]
-    got, want = tk.triangle_count(A), tref.support_dense(A)
+        launches=launches["frontier_peel"], max_abs_err=err,
+        ms=time_ms(torch, lambda: fk.fused_round_live(
+            *args, n_rows, t_out, n_out), 20),
+        plain_ms=time_ms(torch, lambda: fref.fused_round_live(
+            *args, n_rows), 5),
+        bound_ms=b1_bound_ms(B, E, rw["rows_read"], rw["rows_written"]),
+        bound_by="bytes", library_ms=None, shape=[B, E, T], **rw,
+        total_ms=trace_total.get("frontier_peel"),
+        total_host_inclusive_ms=total_ms["frontier_peel"],
+        total_bound_ms=b1_path["bound_ms"],
+        path_rows_read=b1_path["rows_read"],
+        path_rows_written=b1_path["rows_written"],
+        path_padded_rows=b1_path["padded_rows"], design=B1_DESIGN,
+        build=b1b2["frontier_peel"]))
+    say(f"[truss path] B1 on the path's largest call B={B} E={E} T={T} "
+        f"n_rows {n_rows.tolist()[:4]}: equal (rows read {rw['rows_read']}, "
+        f"written {rw['rows_written']}); kernel {kernels[-1]['ms']:.4f} ms, "
+        f"plain {kernels[-1]['plain_ms']:.4f} ms, bound "
+        f"{kernels[-1]['bound_ms']:.4f} ms (bytes)")
+    del sup, alive, rm, tris, args, t_out, p1
+    (A,), kw = p2.largest[None]
+    got, want = tk.triangle_count(A, **kw), tref.support_dense(A)
     Af = A.float()
     bound, by = b2_bound(A.shape[0])
     kernels.append(dict(
@@ -817,16 +1012,29 @@ def main(argv) -> int:
         replaces="src/repro/kernels/triangle_count/kernel.py:73",
         launches=launches["triangle_count"],
         max_abs_err=float((got - want).abs().max()),
-        ms=time_ms(torch, lambda: tk.triangle_count(A), 20),
+        ms=time_ms(torch, lambda: tk.triangle_count(A, **kw), 20),
         plain_ms=time_ms(torch, lambda: tref.support_dense(A), 10),
         bound_ms=bound, bound_by=by,
         library_ms=time_ms(torch, lambda: torch.matmul(Af, Af).mul_(Af), 10),
-        shape=[A.shape[0]], total_ms=total_ms["triangle_count"],
-        total_bound_ms=p2.bound_ms))
-    for kern in kernels:
-        if kern["max_abs_err"] != 0:
-            raise AssertionError(f"{kern['name']} differs from its plain "
-                                 f"version on the main path's inputs")
+        shape=[A.shape[0]], symmetric=kw.get("symmetric", False),
+        # what symmetric=True saves on this call: the general route's A^T
+        # copy alone, and the wrapper's time with it
+        transpose_ms=time_ms(torch, lambda: A.t().contiguous(), 20),
+        general_ms=time_ms(torch, lambda: tk.triangle_count(A), 20),
+        total_ms=trace_total.get("triangle_count"),
+        total_host_inclusive_ms=total_ms["triangle_count"],
+        total_bound_ms=p2.bound_ms, design=B2_DESIGN,
+        build=b1b2["triangle_count"]))
+    if kernels[-1]["max_abs_err"] != 0:
+        raise AssertionError("B2 differs from its plain version on the main "
+                             "path's input")
+    say(f"[truss path] B2 on the path's call n={A.shape[0]} {kw}: equal; "
+        f"kernel {kernels[-1]['ms']:.4f} ms (symmetric=False: "
+        f"{kernels[-1]['general_ms']:.4f} ms, its A^T copy "
+        f"{kernels[-1]['transpose_ms']:.4f} ms), plain "
+        f"{kernels[-1]['plain_ms']:.4f} ms, matmul+mask "
+        f"{kernels[-1]['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
+    del A, Af, got, want
     # B3: the largest global and the largest windowed call, on the path's
     # own strided (B, S, H, D) views, in bf16 and (upcast, strides kept) in
     # float32; the line keeps the largest of them

@@ -79,7 +79,10 @@ def _put(x, dtype, device) -> torch.Tensor:
     """Host array or tensor -> tensor of ``dtype`` on ``device``."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), device=device).to(dtype)
+    # convert on the host, so that only the target type's bytes are copied
+    host = torch.empty(0, dtype=dtype).numpy().dtype
+    return torch.as_tensor(np.ascontiguousarray(x, dtype=host),
+                           device=device)
 
 
 @dataclasses.dataclass
@@ -441,7 +444,9 @@ def peel_classes_batched(sup_b, tris_b, alive_b, *, shape_cache=None,
     lane-local edge ids (padding rows on the drop slot cap_e).  The lanes
     peel in lockstep through the fused round kernel
     (``frontier_peel.ops.peel_classes_fused``); a triangle-free bucket
-    short-cuts on the host (every alive edge peels at k = 2).
+    short-cuts on the host (every alive edge peels at k = 2).  Only the
+    rows up to each lane's last real row are uploaded, with that count per
+    lane; padding rows before it are dropped by the first round.
 
     ``shape_cache`` is a caller-owned set of launch shapes; the result
     reports whether this call added one (the drivers' ``compiles``
@@ -461,9 +466,16 @@ def peel_classes_batched(sup_b, tris_b, alive_b, *, shape_cache=None,
     else:
         new = _note_shape(shape_cache, (tuple(np.shape(sup_b)),
                                         tuple(tris_np.shape)))
+        # rows past a lane's last real row are padding: not uploaded
+        real = (tris_np < cap_e).all(axis=2)
+        n_rows = np.where(real.any(axis=1),
+                          real.shape[1] - np.argmax(real[:, ::-1], axis=1), 0)
         phi_d, st_d = frontier_ops.peel_classes_fused(
-            _put(sup_b, torch.int32, dev), _put(tris_np, torch.int32, dev),
-            _put(alive_b, torch.int32, dev), kernel=kernel)
+            _put(sup_b, torch.int32, dev),
+            _put(tris_np[:, :max(int(n_rows.max()), 1)], torch.int32, dev),
+            _put(alive_b, torch.int32, dev), n_rows=_put(n_rows, torch.int32,
+                                                         dev),
+            cap_t=tris_np.shape[1], kernel=kernel)
         pending = PendingPeel(
             lambda: (phi_d.cpu().numpy(), st_d.cpu().numpy()), new)
     if not blocking:
@@ -478,8 +490,10 @@ def local_threshold_peel(sup0, tris, removable, thresh, *, alive0=None,
     """Single-level peel of a compacted candidate subgraph on padded shapes.
 
     The per-k class extraction of both out-of-core drivers peels one
-    candidate per k.  Edges and triangles are padded to pow4 capacities so
-    consecutive k share launch shapes.  All ``m`` edges start alive unless
+    candidate per k.  Its launch shape, for the ``compiles`` counter, is
+    the pow4 capacities of edges and triangles, as in the reference; only
+    the ``m`` edges and ``T`` triangle rows are uploaded (the round kernel
+    needs no static shape).  All ``m`` edges start alive unless
     ``alive0`` masks some out (dead edges never enter the frontier and their
     triangles never repair supports; ``sup0`` must count fully-alive
     triangles only).  ``removable`` marks the internal/tentative edges.
@@ -499,21 +513,15 @@ def local_threshold_peel(sup0, tris, removable, thresh, *, alive0=None,
         alive_out = alive0 & ~removed
         pending = PendingPeel(lambda: (alive_out, removed), False)
     else:
-        cap_e, cap_tri = _pow4_ceil(max(m, 1)), _pow4_ceil(max(T, 1))
-        new = _note_shape(shape_cache, (cap_e, cap_tri))
-        tris_p = np.full((cap_tri, 3), cap_e, np.int32)
-        tris_p[:T] = tris
-        pads = []
-        for x in (sup0, removable, alive0):
-            p = np.zeros(cap_e, np.int32)
-            p[:m] = x
-            pads.append(_put(p, torch.int32, dev))
+        new = _note_shape(shape_cache, (_pow4_ceil(max(m, 1)),
+                                        _pow4_ceil(max(T, 1))))
         alive_dev = frontier_ops.peel_threshold_fused(
-            pads[0], _put(tris_p, torch.int32, dev), pads[1], int(thresh),
-            pads[2], kernel=kernel)
+            _put(sup0, torch.int32, dev), _put(tris, torch.int32, dev),
+            _put(removable, torch.int32, dev), int(thresh),
+            _put(alive0, torch.int32, dev), kernel=kernel)
 
         def _finish():
-            alive = alive_dev[:m].cpu().numpy() > 0
+            alive = alive_dev.cpu().numpy() > 0
             return alive, alive0 & ~alive
 
         pending = PendingPeel(_finish, new)

@@ -1,12 +1,16 @@
 """Outer peel loops over the fused round kernel.
 
 ``peel_classes_fused`` and ``peel_threshold_fused`` are the lockstep loops of
-``repro.kernels.frontier_peel.ops``: per round, one ``kernel.fused_round``
+``repro.kernels.frontier_peel.ops``: per round, one ``kernel.fused_round_live``
 call plus a few tensor reductions for the per-lane k-jump.  JAX runs them as
 one ``lax.while_loop`` on the device; here they are host loops over device
 tensors with ONE host synchronisation per round (``device.host_read`` of the
-loop-control flags).  A round in which no lane removes an edge is a no-op
-for the round kernel, so its launch is skipped; the stats are identical.
+loop-control flags).  The loops hold two row buffers and their per-lane
+counts for the whole peel and swap them every round: a round reads only the
+rows still live after the last one (the first round drops the padding) and
+writes the survivors into the other buffer; the counts stay on the device.
+A round in which no lane removes an edge is a no-op for the round kernel, so
+its launch is skipped; the stats are identical to the reference's.
 
 The reference's routing rule for ``kernel="auto"`` (TPU backend, VMEM
 budget, 3T >= E) does not carry over: here ``"auto"`` means the CUDA kernel
@@ -28,20 +32,54 @@ N_STATS = 4
 _S_ROUNDS, _S_REMOVED, _S_GATHERED, _S_MAXF = range(N_STATS)
 
 
-def peel_classes_fused(sup_b, tris_b, alive_b, *, kernel: str = "auto"):
+class _Rows:
+    """A ping-pong pair of (B, T, 3) row buffers with their (B,) counts.
+
+    The first round reads the caller's rows and counts; they are never
+    written: the pair's second buffer takes their place after it."""
+
+    def __init__(self, tris, n_rows):
+        B, T = tris.shape[0], tris.shape[1]
+        if n_rows is None:
+            n_rows = torch.full((B,), T, dtype=torch.int32,
+                                device=tris.device)
+        self.tris = [tris.contiguous(), torch.empty_like(tris)]
+        self.cnt = [n_rows.to(device=tris.device, dtype=torch.int32),
+                    torch.empty((B,), dtype=torch.int32, device=tris.device)]
+        self.first = True
+
+    def round(self, sup, alive, rm):
+        """One round over the live rows; the survivors become the live
+        rows."""
+        out = fk.fused_round_live(sup, alive, rm, self.tris[0], self.cnt[0],
+                                  self.tris[1], self.cnt[1])
+        if self.first:
+            self.first = False
+            self.tris[0] = torch.empty_like(self.tris[1])
+            self.cnt[0] = torch.empty_like(self.cnt[1])
+        self.tris.reverse()
+        self.cnt.reverse()
+        return out
+
+
+def peel_classes_fused(sup_b, tris_b, alive_b, *, n_rows=None, cap_t=None,
+                       kernel: str = "auto"):
     """Trussness of every lane by lockstep fused rounds.
 
     sup_b/alive_b: (B, E) int32 tensors, tris_b: (B, T, 3) int32 on the same
-    device (padding rows on the drop slot E).  Returns (phi (B, E) int32,
-    stats (B, N_STATS) int32): per lane, rounds += 1 while the lane is
-    alive, removed += frontier size, gathered += 3T on rounds that remove,
-    max frontier.
+    device (padding rows on the drop slot E).  ``n_rows`` (B,) gives each
+    lane's row count (rows past it are never read), default T.  ``cap_t`` is
+    the triangle capacity the stats count, default T.  Returns (phi (B, E)
+    int32, stats (B, N_STATS) int32): per lane, rounds += 1 while the lane
+    is alive, removed += frontier size, gathered += 3 cap_t on rounds that
+    remove, max frontier.
     """
     check_kernel(kernel)
     sup, alive = sup_b, alive_b
     B, E = sup.shape
-    three_t = 3 * int(tris_b.shape[1])
+    three_t = 3 * int(tris_b.shape[1] if cap_t is None else cap_t)
     dev = sup.device
+    rows = _Rows(tris_b, n_rows)
     phi = torch.zeros((B, E), dtype=torch.int32, device=dev)
     k = torch.full((B,), 2, dtype=torch.int32, device=dev)
     st = torch.zeros((B, N_STATS), dtype=torch.int32, device=dev)
@@ -58,7 +96,7 @@ def peel_classes_fused(sup_b, tris_b, alive_b, *, kernel: str = "auto"):
                              torch.maximum(k + 1, min_sup + 2), k)
         phi = torch.where(rm > 0, k[:, None], phi)
         if any_rm:
-            sup, alive = fk.fused_round(sup, alive, rm, tris_b)
+            sup, alive = rows.round(sup, alive, rm)
         st[:, _S_ROUNDS] += lane_alive.to(torch.int32)
         st[:, _S_REMOVED] += nf
         st[:, _S_GATHERED] += torch.where(has_rm, three_t, 0).to(torch.int32)
@@ -74,11 +112,12 @@ def peel_threshold_fused(sup, tris, removable, thresh: int, alive0, *,
     removable / alive0 and (T, 3) int32 triangles on one device; returns the
     final (E,) int32 alive mask."""
     check_kernel(kernel)
-    sup, alive, tris = sup[None], alive0[None], tris[None]
+    sup, alive = sup[None], alive0[None]
+    rows = _Rows(tris[None], None)
     rem = removable[None] > 0
     while True:
         rm = torch.where(rem & (sup <= thresh), alive, 0)
         (any_rm,) = host_read(rm.any())
         if not any_rm:
             return alive[0]
-        sup, alive = fk.fused_round(sup, alive, rm, tris)
+        sup, alive = rows.round(sup, alive, rm)

@@ -1,9 +1,12 @@
 """Plain PyTorch versions of the fused frontier-peel round and class peel.
 
 ``fused_round`` states the round's semantics with gathers and a scatter-add
-(no tiling, no atomics); the CUDA kernel (``kernel.fused_round`` on a CUDA
-tensor) must equal it exactly, and CPU tensors take it instead of the
-kernel.  ``peel_classes`` runs the lockstep class peel on top of it.
+(no tiling, no atomics); ``fused_round_live`` is the same round over the
+first ``n_rows`` rows of each lane, with the rows that stay live compacted
+in order.  The CUDA kernel (``kernel.fused_round_live`` on a CUDA tensor)
+must equal them exactly (its compacted rows as a multiset), and CPU tensors
+take them instead of the kernel.  ``peel_classes`` runs the lockstep class
+peel on top of ``fused_round``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,34 @@ def fused_round(sup, alive, rm, tris):
         tgt = idx[:, :, c]
         dec.scatter_add_(1, tgt, died * torch.gather(alive2_p, 1, tgt))
     return sup - dec[:, :E], alive2
+
+
+def fused_round_live(sup, alive, rm, tris, n_rows):
+    """The round over rows [0, n_rows[b]) of each lane b, and the rows that
+    stay live.
+
+    Rows past a lane's count are read as padding.  A row stays live when its
+    three corners are alive after the round (a drop-slot corner never is).
+    Returns (sup', alive', rows (B, T, 3), counts (B,) int32): lane b's live
+    rows in their input order in rows[b, :counts[b]], the drop slot E after.
+    """
+    B, E = sup.shape
+    T = tris.shape[1]
+    t = torch.arange(T, device=tris.device)
+    in_rows = t[None, :] < n_rows.to(torch.int64).clamp(0, T)[:, None]
+    rows = torch.where(in_rows[:, :, None], tris, E)
+    sup2, alive2 = fused_round(sup, alive, rm, rows)
+    alive2_p = _pad_drop(alive2)
+    idx = rows.long()
+    live = in_rows
+    for c in range(3):
+        live = live & (torch.gather(alive2_p, 1, idx[:, :, c]) > 0)
+    # order-keeping compaction: live rows first, by row index
+    order = torch.argsort(torch.where(live, t, T + t), dim=1, stable=True)
+    counts = live.sum(dim=1, dtype=torch.int32)
+    packed = torch.gather(rows, 1, order[:, :, None].expand(B, T, 3))
+    packed = torch.where((t[None, :] < counts[:, None])[:, :, None], packed, E)
+    return sup2, alive2, packed, counts
 
 
 def peel_classes(sup0, tris, alive0):

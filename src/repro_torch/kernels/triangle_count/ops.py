@@ -10,11 +10,13 @@ from repro_torch.kernels import check_kernel
 from repro_torch.kernels.triangle_count import kernel as tk
 
 
-def dense_support(A: torch.Tensor, *, kernel: str = "auto") -> torch.Tensor:
+def dense_support(A: torch.Tensor, *, kernel: str = "auto",
+                  symmetric: bool = False) -> torch.Tensor:
     """Per-edge support matrix (n, n) int32 of a dense 0/1 adjacency: the
-    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor.
+    ``symmetric=True`` promises A == A^T (no transposed copy on the card)."""
     check_kernel(kernel)
-    return tk.triangle_count(A)
+    return tk.triangle_count(A, symmetric=symmetric)
 
 
 def adjacency_from_edges(n: int, edges: np.ndarray, *,
@@ -34,6 +36,6 @@ def dense_edge_support(n: int, edges: np.ndarray, *, kernel: str = "auto",
     """sup(e) per edge of a dense core via the dense-support kernel;
     (m,) int64 on the host."""
     A = adjacency_from_edges(n, edges, device=device)
-    S = dense_support(A, kernel=kernel)
+    S = dense_support(A, kernel=kernel, symmetric=True)
     e = torch.as_tensor(np.asarray(edges, np.int64), device=A.device)
     return S[e[:, 0], e[:, 1]].to(torch.int64).cpu().numpy()

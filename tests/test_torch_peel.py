@@ -5,7 +5,10 @@ must equal the JAX engines in phi, alive and — for the frontier engine —
 every ``PeelStats`` field, also with a ``cap_t`` small enough to force
 capacity-doubling resumes.  The batched local peels run on partition
 buckets that the JAX ``build_partition_batch`` made, carried across by
-``interop``.  All comparisons are exact.
+``interop``.  All comparisons are exact.  The batched peels upload only
+real triangle rows (a candidate's ``T`` rows and ``m`` edges, a bucket's
+rows up to each lane's last real one) while the ``compiles`` counter keeps
+the reference's pow4 launch shapes.
 """
 
 import warnings
@@ -14,14 +17,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import bottom_up as jbu
 from repro.core import graph as jgraph
 from repro.core import partition as jpart
 from repro.core import peel as jpeel
+from repro.core import top_down as jtd
 from repro.core.support import list_triangles_np, support_from_triangle_list
 from repro.data import graphgen as jgen
 from repro_torch import interop
+from repro_torch.core import bottom_up as tbu
 from repro_torch.core import graph as tgraph
 from repro_torch.core import peel as tpeel
+from repro_torch.core import top_down as ttd
+from repro_torch.kernels.frontier_peel import ops as tops
 from tests.conftest import conformance_corpus
 
 torch.manual_seed(0)
@@ -217,3 +225,77 @@ def test_support_from_triangles_equal():
     got = tpeel.support_from_triangles(torch.as_tensor(tris).long(),
                                        torch.as_tensor(alive), m)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _spy(monkeypatch, name):
+    """Record the tensors handed to ``frontier_peel.ops.<name>``."""
+    calls = []
+    real = getattr(tops, name)
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tops, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("thresh", [0, 2])
+def test_local_threshold_peel_uploads_real_rows_only(monkeypatch, thresh):
+    name, n, edges = GRAPHS[-1]
+    m, sup, tris = _inputs(n, edges)
+    assert tpeel._pow4_ceil(len(tris)) > len(tris)    # padding was possible
+    removable = np.random.default_rng(thresh).random(m) < 0.7
+    calls = _spy(monkeypatch, "peel_threshold_fused")
+    cache = set()
+    ta, tr, new = tpeel.local_threshold_peel(sup, tris, removable, thresh,
+                                             shape_cache=cache, device="cpu")
+    (args, _), = calls
+    assert tuple(args[1].shape) == (len(tris), 3)       # T rows, unpadded
+    assert tuple(args[0].shape) == tuple(args[2].shape) == \
+        tuple(args[4].shape) == (m,)                   # m edges, unpadded
+    np.testing.assert_array_equal(args[1].numpy(), tris)
+    # the launch shape the compiles counter sees is the reference's pow4 key
+    assert new and cache == {(tpeel._pow4_ceil(m),
+                              tpeel._pow4_ceil(len(tris)))}
+    ja, jr, _ = jpeel.local_threshold_peel(sup, tris, removable, thresh)
+    np.testing.assert_array_equal(ta, np.asarray(ja))
+    np.testing.assert_array_equal(tr, np.asarray(jr))
+
+
+def test_peel_classes_batched_uploads_rows_to_last_real_row(monkeypatch):
+    name, n, edges = GRAPHS[-1]
+    calls = _spy(monkeypatch, "peel_classes_fused")
+    for jb in _jax_buckets(n, edges, "sequential"):
+        tb = interop.part_bucket(jb)
+        calls.clear()
+        tphi, tst, _ = tpeel.peel_classes_batched(tb.sup, tb.tris, tb.alive,
+                                                  device="cpu")
+        if not calls:                        # triangle-free short cut
+            continue
+        (args, kw), = calls
+        real = (tb.tris < tb.cap_e).all(axis=2).sum(axis=1)
+        np.testing.assert_array_equal(kw["n_rows"].numpy(), real)
+        assert args[1].shape[1] == max(int(real.max()), 1) <= tb.cap_t
+        assert kw["cap_t"] == tb.cap_t
+        jphi, jst, _ = jpeel.peel_classes_batched(
+            jb.sup, jb.tris, jb.indptr, jb.tids, jb.alive)
+        np.testing.assert_array_equal(tphi, np.asarray(jphi))
+
+
+@pytest.mark.parametrize("name,n,edges", GRAPHS, ids=IDS)
+def test_ooc_compiles_and_top_down_stats_equal(name, n, edges):
+    """With the unpadded uploads, ``OocStats.compiles`` still counts the
+    reference's launch shapes, and top-down's stats equal the reference's."""
+    budget = max(64, len(edges) // 3)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        j = jbu.bottom_up_decompose(n, edges, budget)
+        t = tbu.bottom_up_decompose(n, edges, budget, device="cpu")
+    np.testing.assert_array_equal(t.phi, j.phi)
+    assert t.stats.compiles == j.stats.compiles
+    j = jtd.top_down_decompose(n, edges)
+    t = ttd.top_down_decompose(n, edges, device="cpu")
+    np.testing.assert_array_equal(t.phi, j.phi)
+    for f in ("compiles", "scans", "batches", "stage2_overlapped"):
+        assert getattr(t.stats, f) == getattr(j.stats, f), (name, f)
