@@ -12,20 +12,27 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    registers, spills and shared memory (ptxas) and its tensor-core
    instructions (``cuobjdump -sass``): the bf16 D = 256 one must have some
    and spill nothing; the same for B1 and B2, whose SASS must hold int8 MMA
-   instructions (B2) and neither of which may spill;
+   instructions (B2) and neither of which may spill; and the registers,
+   spills and static shared memory of every B4 instantiation and of its
+   gather probe, none of which may spill;
 2. every kernel against its plain PyTorch version on the card (B1, B2
    exact; B1's live-row round also with fewer rows than its buffer, its
    compacted rows compared as a multiset per lane, at shapes that reach
    its global-state branch and its several-lanes-a-block branch; B2 on
    symmetric and non-symmetric matrices, timed also with the A^T copy of
    ``symmetric=False``; B3, B4 within the tolerances stated at
-   ``B3_F32_TOL``, ``B3_TOL``, ``B4_TOL``), with its time, its bound and, where one PyTorch
-   call computes the same function, that call's time: B3 flash attention
+   ``B3_F32_TOL``, ``B3_TOL``, ``B4_TOL``, ``B4_BF16_TOL``), with its time,
+   its bound and, where one PyTorch call computes the same function, that
+   call's time: B3 flash attention
    on the small float32 and bf16 cases of ``B3_CASES`` (every head width it
    instantiates, ragged lengths, narrow windows, non-causal), then timed at
    gemma3-4b's head shapes (causal and window 1024, bf16) beside its time
    before the tensor-core design (run E, ``B3_RUN_E_MS``); B4 embedding bag
-   at DIN's table and batch shapes;
+   at every branch of its row layout (``B4_CASES``), then at DIN's table
+   and batch shapes in float32 and bf16, beside its time before the warp-
+   per-bag design (run H, ``B4_RUN_H_MS``), and the floor of the gather (a probe that reads the same rows and
+   indices without bags) with the bytes that 32-byte sectors and 64-byte
+   segments would move;
 3. in-memory route: ``truss_decompose`` on R-MAT scale 17;
 4. bottom-up route: ``truss_decompose(engine="bottom-up", memory_budget=
    estimate_working_set // 16)`` on R-MAT scale 15;
@@ -130,6 +137,35 @@ B3_DESIGN = ("bf16: tensor cores, wgmma m64n64k16 (S = Q K^T, both from "
 # A recursive float32 sum errs by at most about L 2^-24 sum|x| (~5e-4 for
 # sum|x| ~ 80); a sum that cancels to near 0 is held by atol, not rtol.
 B4_TOL = dict(rtol=1e-5, atol=5e-4)
+# B4 in bf16: both sum in float32 and round once to bf16, so they differ by
+# one bf16 step (at most 2^-7 |out|) where their float32 sums straddle a
+# rounding point; near 0 the float32 orders differ by B4_TOL's atol.
+B4_BF16_TOL = dict(rtol=2 ** -7, atol=B4_TOL["atol"])
+B4_DESIGN = ("a warp per bag: its indices staged in shared memory, 128 at a "
+             "time (four coalesced loads of 32, the next 128 in flight), rows "
+             "read as the widest vector that divides the row and the table's "
+             "address (D = 18 float32: float2, 9 lanes a row, 3 rows a load "
+             "instruction), 8 row loads (__ldg) a lane in flight, float32 "
+             "sums of the row groups combined by shuffles")
+# DIN's embedding table (V x D float32) and its bags of L: serve_p99 and
+# serve_bulk batches
+DIN_V, DIN_D, DIN_L, DIN_BATCHES = 10_000_000, 18, 100, (512, 262_144)
+# B4 before this design (one thread per output element), (B, mode): ms at
+# DIN's f32 shapes on an H100 80GB HBM3 at 700 W (PERF.md, run H)
+B4_RUN_H_MS = {(512, "sum"): 0.0382, (512, "mean"): 0.0236,
+               (262_144, "sum"): 1.3980, (262_144, "mean"): 1.3977}
+# B4 at every branch of its layout (dtype, D, B, L, table offset in
+# elements; V = 100,000): float2 / bf16x2 rows of 9 lanes (D = 18), the 4-
+# and 2-byte fallbacks (D = 17), float4 and one row a load (D = 128, bf16:
+# two rows), passes over a wide row (D = 256), a table 4 bytes off 16-byte
+# alignment (4-byte loads at D = 128), L = 1, L over the 128 staged indices
+# (300, 130), B = 1.
+B4_CASES = (("float32", 18, 1000, 100, 0), ("bf16", 18, 1000, 100, 0),
+            ("float32", 17, 1000, 100, 0), ("bf16", 17, 1000, 7, 0),
+            ("float32", 128, 1000, 100, 0), ("bf16", 128, 1000, 130, 0),
+            ("float32", 256, 1000, 100, 0), ("float32", 128, 1000, 100, 1),
+            ("float32", 18, 1000, 1, 0), ("float32", 18, 1000, 300, 0),
+            ("float32", 18, 1, 100, 0), ("float32", 256, 1, 1, 0))
 # phase 7: last-token logits of the flash and the plain prefill in bf16.
 # The two paths round attention outputs to bf16 at other points, and the
 # difference grows through 34 layers: on an H100 80GB HBM3 at 700 W it was
@@ -224,6 +260,26 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps: int) -> float:
+    """Device time of one ``fn()`` without the host's cost of a call: ``reps``
+    calls captured in one CUDA graph, replayed and timed by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def b1_bound_ms(B: int, E: int, rows_read: int, rows_written: int) -> float:
     """Least time of one fused round: the triangle rows it reads and the
     live rows it writes (12 bytes a row) and the five (B, E) int32 arrays
@@ -273,6 +329,22 @@ def b4_bound_ms(table, idx) -> float:
     B, L = idx.shape
     row = table.shape[1] * table.element_size()
     return (B * L * row + B * L * 4 + B * row) / HBM_BYTES_PER_S * 1e3
+
+
+def b4_traffic(table, idx) -> dict:
+    """What the gather moves if every row costs the 32-byte sectors (or the
+    64-byte segments) it touches, with the indices and the output moved
+    once: information beside the byte bound, which counts each byte once."""
+    B, L = idx.shape
+    row = table.shape[1] * table.element_size()
+    start = table.data_ptr() % 64 + idx.long() * row
+    end = start + row - 1
+    out = {}
+    for unit, name in ((32, "sector"), (64, "segment")):
+        n = int((end // unit - start // unit + 1).sum())
+        out[f"{name}_bytes"] = unit * n + 4 * B * L + B * row
+        out[f"{name}_ms"] = out[f"{name}_bytes"] / HBM_BYTES_PER_S * 1e3
+    return out
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -374,6 +446,30 @@ def b1b2_build_check(build) -> dict:
     return out
 
 
+def b4_build_check(build) -> dict:
+    """Print what ptxas made of every B4 instantiation and of the gather
+    probe; raise if one spills.  Returns the figures by (function, dtype,
+    load bytes)."""
+    out = {}
+    for name, r in ptxas_kernels(build.report("embedding_bag")).items():
+        m = re.search(r"(embedding_bag_kernel|gather_probe)"
+                      r"I(f|13__nv_bfloat16)Li(\d+)E", name)
+        if m is None:
+            continue
+        key = (m[1], "float32" if m[2] == "f" else "bf16", int(m[3]))
+        say(f"[1]   B4 {key[0]} {key[1]} {key[2]}-byte loads: "
+            f"{r['registers']} "
+            f"registers, {r['spill_stores']} bytes spill stores, "
+            f"{r['stack']} bytes stack, {r['static_smem']} bytes static "
+            f"shared memory")
+        if r["spill_stores"]:
+            raise AssertionError(f"B4 {key} spills {r['spill_stores']} bytes")
+        out[key] = r
+    if not any(k[0] == "embedding_bag_kernel" for k in out):
+        raise AssertionError("no embedding_bag_kernel in the ptxas report")
+    return out
+
+
 def row_key(torch, rows):
     """One int64 per (e0, e1, e2) row (ids below 2^21), for comparing row
     lists as multisets."""
@@ -458,6 +554,105 @@ class Probe:
         return sum(s.elapsed_time(e) for s, e in self.events)
 
 
+def check_b4(torch, bk, bref, table, idx, mode: str, where: str) -> float:
+    """B4 against its plain version on the same inputs, within B4_TOL
+    (float32) or B4_BF16_TOL (bf16); returns the max abs error."""
+    tol = B4_TOL if table.dtype == torch.float32 else B4_BF16_TOL
+    got = bk.embedding_bag(table, idx, mode=mode)
+    want = bref.embedding_bag(table, idx, mode=mode)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype != want.dtype or got.shape != want.shape or \
+            not torch.allclose(got.float(), want.float(), **tol):
+        raise AssertionError(f"B4 embedding_bag differs from its plain "
+                             f"version {where} {mode}: max abs err {err}")
+    return err
+
+
+def b4_phase(torch, F, bk, bref, gen, builds, dev) -> dict:
+    """Phase 2 for B4: every case of B4_CASES in sum and mean, then DIN's
+    table (10,000,000 x 18, float32 and bf16) at serve_p99 (512 bags) and
+    serve_bulk (262,144 bags) of 100: checked, timed beside run H, the plain
+    version, F.embedding_bag, the byte bound, the sector and segment traffic
+    (derived from the shapes, not measured) and the gather probe's floor.  The kernel is
+    also timed in a CUDA graph (its device time without the host's cost of a
+    call), and so is the probe.  Returns the kernels-line entry (serve_bulk,
+    float32, mean)."""
+    dtypes = {"float32": torch.float32, "bf16": torch.bfloat16}
+    for dname, D, B, L, offset in B4_CASES:
+        V = 100_000
+        flat = torch.randn(V * D + offset, generator=gen, device=dev)
+        table = flat.to(dtypes[dname])[offset:].view(V, D)
+        idx = torch.randint(0, V, (B, L), generator=gen, device=dev,
+                            dtype=torch.int32)
+        lay = bk.layout(D, table.element_size(), table.data_ptr())
+        where = f"at {dname} D={D} B={B} L={L} offset {offset}"
+        errs = [check_b4(torch, bk, bref, table, idx, mode, where)
+                for mode in bk.MODES]
+        say(f"[2] B4 embedding_bag {dname} D={D} B={B} L={L} table offset "
+            f"{offset}: {lay.vec}-byte loads, {lay.chunks} a row, "
+            f"{lay.rows} rows a load, {lay.passes} pass(es); max abs err "
+            f"sum {errs[0]:.3g}, mean {errs[1]:.3g}")
+    table = torch.randn((DIN_V, DIN_D), generator=gen, device=dev)
+    out = None
+    for B in DIN_BATCHES:
+        idx = torch.randint(0, DIN_V, (B, DIN_L), generator=gen, device=dev,
+                            dtype=torch.int32)
+        for dname, dt in dtypes.items():
+            tbl = table.to(dt)
+            traffic = b4_traffic(tbl, idx)
+            bound = b4_bound_ms(tbl, idx)
+            floor = graph_ms(torch, lambda: bk.gather_probe(tbl, idx), 20)
+            say(f"[2] B4 gather probe V={DIN_V:,} D={DIN_D} {dname} B={B} "
+                f"L={DIN_L}: floor {floor:.4f} ms; bytes bound {bound:.4f} "
+                f"ms; derived from the shapes: 32-byte sectors "
+                f"{traffic['sector_bytes']:,} bytes = "
+                f"{traffic['sector_ms']:.4f} ms, 64-byte segments "
+                f"{traffic['segment_bytes']:,} bytes = "
+                f"{traffic['segment_ms']:.4f} ms at 3.35 TB/s")
+            for mode in bk.MODES:
+                err = check_b4(torch, bk, bref, tbl, idx, mode,
+                               f"at DIN {dname} B={B}")
+                ms = time_ms(torch, lambda: bk.embedding_bag(
+                    tbl, idx, mode=mode), 20)
+                device = graph_ms(torch, lambda: bk.embedding_bag(
+                    tbl, idx, mode=mode), 20)
+                plain = time_ms(torch, lambda: bref.embedding_bag(
+                    tbl, idx, mode=mode), 5)
+                lib = time_ms(torch, lambda: F.embedding_bag(
+                    idx, tbl, mode=mode), 20)
+                run_h = B4_RUN_H_MS.get((B, mode)) if dname == "float32" \
+                    else None
+                tol = B4_TOL if dname == "float32" else B4_BF16_TOL
+                say(f"[2] B4 embedding_bag V={DIN_V:,} D={DIN_D} {dname} "
+                    f"B={B} L={DIN_L} {mode}: max abs err {err:.3g} (tol "
+                    f"{tol}); kernel {ms:.4f} ms (in a CUDA graph "
+                    f"{device:.4f} ms; run H "
+                    f"{'none' if run_h is None else f'{run_h:.4f} ms'}), "
+                    f"plain {plain:.4f} ms, F.embedding_bag {lib:.4f} ms, "
+                    f"bound {bound:.4f} ms (bytes), gather_floor_ms "
+                    f"{floor:.4f}")
+                if (B, dname, mode) == (DIN_BATCHES[-1], "float32", "mean"):
+                    lay = bk.layout(DIN_D, 4, tbl.data_ptr())
+                    out = dict(
+                        name="embedding_bag.embedding_bag", route="cuda",
+                        source="src/repro_torch/csrc/embedding_bag.cu",
+                        replaces="src/repro/kernels/embedding_bag/"
+                        "kernel.py:53", launches=0, max_abs_err=err, ms=ms,
+                        plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                        library_ms=lib,
+                        shape=[*tbl.shape, B, DIN_L], mode=mode,
+                        design=B4_DESIGN, gather_floor_ms=floor,
+                        traffic_derived_from_shapes=traffic, graph_ms=device,
+                        build=builds.get(("embedding_bag_kernel", "float32",
+                                          lay.vec)),
+                        note="no model path of the JAX package reaches "
+                        "embedding_bag; timed at DIN serve_bulk")
+            del tbl
+        del idx
+    return out
+
+
 def phi_digest(phi: np.ndarray) -> dict:
     phi = np.asarray(phi).astype(np.int64)
     k, c = np.unique(phi, return_counts=True)
@@ -531,6 +726,7 @@ def main(argv) -> int:
                 say(f"[1]   {name}: {line.strip()}")
     b3_tc = b3_build_check(torch, build, ak)
     b1b2 = b1b2_build_check(build)
+    b4_build = b4_build_check(build)
 
     # -- phase 2: kernels against their plain versions -----------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -673,39 +869,7 @@ def main(argv) -> int:
                 f"sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by})")
         del q, k, v
 
-    table = torch.randn((10_000_000, 18), generator=gen, device=dev)
-    for B in (512, 262_144):
-        idx = torch.randint(0, table.shape[0], (B, 100), generator=gen,
-                            device=dev, dtype=torch.int32)
-        for mode in ("sum", "mean"):       # the line keeps bulk mean
-            got = bk.embedding_bag(table, idx, mode=mode)
-            want = bref.embedding_bag(table, idx, mode=mode)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            if not torch.allclose(got, want, **B4_TOL):
-                raise AssertionError(f"B4 embedding_bag differs from its "
-                                     f"plain version at B={B} {mode}: max "
-                                     f"abs err {err}")
-            ms = time_ms(torch, lambda: bk.embedding_bag(table, idx,
-                                                         mode=mode), 20)
-            plain = time_ms(torch, lambda: bref.embedding_bag(
-                table, idx, mode=mode), 5)
-            lib = time_ms(torch, lambda: F.embedding_bag(idx, table,
-                                                         mode=mode), 20)
-            b4 = dict(name="embedding_bag.embedding_bag", route="cuda",
-                      source="src/repro_torch/csrc/embedding_bag.cu",
-                      replaces="src/repro/kernels/embedding_bag/kernel.py:53",
-                      launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                      bound_ms=b4_bound_ms(table, idx), bound_by="bytes",
-                      library_ms=lib, shape=[*table.shape, B, 100],
-                      mode=mode, note="no model path of the JAX package "
-                      "reaches embedding_bag; timed at DIN serve_bulk")
-            say(f"[2] B4 embedding_bag V=10,000,000 D=18 f32 B={B} L=100 "
-                f"{mode}: max abs err {err:.3g} (tol {B4_TOL}); kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, F.embedding_bag "
-                f"{lib:.4f} ms, bound {b4['bound_ms']:.4f} ms (bytes)")
-        del idx, got, want
-    del table
+    b4 = b4_phase(torch, F, bk, bref, gen, b4_build, dev)
 
     # -- truss path: phases 3-5 ----------------------------------------------
     kernel_mods = {"B1": fk, "B2": tk, "B3": ak, "B4": bk}
