@@ -38,9 +38,29 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    estimate_working_set // 16)`` on R-MAT scale 15;
 5. top-down: ``top_down_decompose`` on R-MAT scale 15, then on a dense core
    (Erdos-Renyi, 2,048 vertices, 314,000 edges) that the density rule routes
-   to the dense-support kernel;
-6. phi of every graph of phases 3-5 against digests of the JAX package's
-   answer, and the paper's Figure-2 graph against the port's serial oracle;
+   to the dense-support kernel; then (5d) budgeted top-down,
+   ``truss_decompose(engine="top-down", memory_budget=...)`` on R-MAT scale
+   15 at phase 4's budget: stage 1 by ``partitioned_support`` on the host,
+   the levels through B1; its phi must equal the in-memory one, with no
+   retry.  After the truss path's counts are read:
+   5e. kill and resume: a child process (``sys.executable``, importing only
+       ``repro_torch``) runs 5d's call with a journal in a temporary
+       directory (``checkpoint_every=1``) and a ``kill`` fault rule at the
+       dispatch of the level halfway down 5d's classes; it must end by
+       SIGKILL.  This process then resumes the same call from the journal:
+       the phi must equal 5d's, ``resumed_round`` must be the journal's
+       last level, ``checkpoints`` positive;
+   5f. the retry ladder on R-MAT scale 13, seed 5: an allocation past the
+       card's memory must raise a ``torch.OutOfMemoryError`` that
+       ``faults.is_retryable`` accepts, and a B1 launch after it must equal
+       its plain version; then budgeted bottom-up and top-down run under
+       injected OOMs (``RETRY_PLANS``: a stage-1 dispatch twice, so two lane
+       splits; a stage-2 finalize; a top-down level; the ``support`` site)
+       and must give the in-memory phi with the planned retries.  That
+       provoked OOM is the only error the smoke catches;
+6. phi of every graph of phases 3-5 (5d included) against digests of the
+   JAX package's answer, and the paper's Figure-2 graph against the port's
+   serial oracle;
 7. LM serving: gemma3-4b at full width (34 layers, d_model 2560, vocab
    262,144, bf16, random weights from a generator seeded with 0, the flash
    kernel on) serves 8 requests of 2,048-token prompts and 32 greedy decode
@@ -50,7 +70,7 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    how far the plain path's logits move with a window off by one key and
    with no window at all, as a measure of what that limit can see.
 
-Two main paths: the truss path (phases 3-5) and the LM path (phase 7).
+Two main paths: the truss path (phases 3-5d) and the LM path (phase 7).
 Every launch counter is set to 0 just before each and read just after it,
 and each kernel of the path must have launched (B1 and B2 on the truss
 path, B3 on the LM path; no model path reaches B4).  The kernels are then
@@ -73,10 +93,13 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -670,6 +693,125 @@ def check_digest(name: str, phi: np.ndarray) -> None:
                              f"{str(diff)[:2000]}")
 
 
+# phase 5e's child: 5d's call, journaled at every round and level, killed by
+# a "kill" rule at the dispatch of level K.  It imports only repro_torch.
+KILL_CHILD = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from repro_torch.core import faults
+from repro_torch.core.peel import truss_decompose
+from repro_torch.data.graphgen import rmat
+
+journal, budget, k_kill, device = sys.argv[1:5]
+n, edges = rmat(15, 8, seed=5)
+faults.install(faults.FaultPlan([faults.FaultRule(
+    site=faults.DISPATCH, kind="kill",
+    where={"stage": "td", "k": int(k_kill)})]))
+truss_decompose(n, edges, engine="top-down", memory_budget=int(budget),
+                checkpoint_dir=journal, checkpoint_every=1, device=device)
+print("the child was not killed")
+"""
+
+# phase 5f: injected OOM plans, (label, engine, rule, retries expected)
+RETRY_PLANS = (
+    ("stage-1 dispatch, two lane splits", "bottom-up",
+     dict(site="dispatch", where={"stage": 1}, times=2), 2),
+    ("stage-2 finalize", "bottom-up",
+     dict(site="finalize", where={"stage": 2}), 1),
+    ("top-down level", "top-down",
+     dict(site="dispatch", where={"stage": "td"}), 1),
+    ("support", "top-down", dict(site="support"), 1),
+)
+
+
+def kill_and_resume(truss_decompose, ckpt, run_phase, n, edges, budget,
+                    phi_want, dev) -> dict:
+    """Phase 5e: a child process runs the budgeted top-down call with a
+    journal and is SIGKILLed at the dispatch of the level halfway down the
+    classes of ``phi_want``; this process resumes the same call from the
+    journal.  The child must end by SIGKILL, the resumed phi equal
+    ``phi_want``, and ``resumed_round`` be the last journaled level."""
+    ks = sorted(set(np.unique(phi_want).tolist()) - {2}, reverse=True)
+    k_kill = ks[len(ks) // 2]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_journal_") as d:
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        child = subprocess.run(
+            [sys.executable, "-c", KILL_CHILD, d, str(budget), str(k_kill),
+             str(dev)], env=env, capture_output=True, text=True,
+            timeout=600)
+        child_s = time.perf_counter() - t0
+        if child.returncode != -signal.SIGKILL:
+            raise AssertionError(
+                f"5e: the child exited with {child.returncode}, not by "
+                f"SIGKILL: {child.stdout[-800:]} {child.stderr[-2000:]}")
+        _, meta = ckpt.restore(d)
+        if meta["stage"] != "td" or meta["index"] <= k_kill:
+            raise AssertionError(f"5e: the newest snapshot is "
+                                 f"{meta['stage']} {meta['index']}, not a "
+                                 f"level above {k_kill}")
+        phi, st = run_phase("5e resume rmat15", lambda: truss_decompose(
+            n, edges, engine="top-down", memory_budget=budget,
+            with_stats=True, checkpoint_dir=d, resume=True, device=dev))
+    out = dict(k_kill=k_kill, levels=len(ks), child_s=round(child_s, 3),
+               last_journaled=meta["index"], resumed_round=st.resumed_round,
+               checkpoints=st.checkpoints, retries=st.retries)
+    say(f"[5e] child killed by SIGKILL at level {k_kill} of {len(ks)} "
+        f"classes after {child_s:.3f} s; resumed {out}")
+    if not np.array_equal(phi, phi_want):
+        raise AssertionError("5e: the resumed phi differs")
+    if st.resumed_round != meta["index"] or st.checkpoints <= 0:
+        raise AssertionError(f"5e: resumed_round {st.resumed_round} (the "
+                             f"journal's last level {meta['index']}), "
+                             f"checkpoints {st.checkpoints}")
+    return out
+
+
+def retry_ladder(torch, faults, truss_decompose, estimate_working_set,
+                 build_graph, rmat, check_b1, dev) -> dict:
+    """Phase 5f on R-MAT scale 13, seed 5: a genuine allocator OOM must be
+    a ``torch.OutOfMemoryError`` that ``faults.is_retryable`` accepts, and
+    the B1 launch after it (``check_b1``) must equal its plain version;
+    then the budgeted drivers under each of ``RETRY_PLANS`` must give the
+    in-memory phi with the planned retries."""
+    n, edges = rmat(13, 8, seed=5)
+    budget = estimate_working_set(build_graph(n, edges)) // 16
+    phi_want = truss_decompose(n, edges, device=dev)
+    total = torch.cuda.mem_get_info()[1]
+    try:
+        torch.empty(total + (1 << 30), dtype=torch.uint8, device=dev)
+    except torch.OutOfMemoryError as exc:
+        oom = (type(exc).__name__, str(exc).split("\n")[0][:160],
+               faults.is_retryable(exc))
+    else:
+        raise AssertionError("5f: an allocation past the card's memory "
+                             "did not raise")
+    say(f"[5f] genuine OOM: {oom[0]}: {oom[1]}; retryable {oom[2]}")
+    if not oom[2]:
+        raise AssertionError("5f: faults.is_retryable refused a device OOM")
+    check_b1("after the device OOM")
+    out = dict(oom_retryable=oom[2], plans=[])
+    for label, engine, rule, retries in RETRY_PLANS:
+        plan = faults.FaultPlan([faults.FaultRule(kind="oom", **rule)])
+        t0 = time.perf_counter()
+        with faults.active(plan):
+            phi, st = truss_decompose(n, edges, engine=engine,
+                                      memory_budget=budget, with_stats=True,
+                                      device=dev)
+        row = dict(plan=label, engine=engine, fired=len(plan.log),
+                   retries=st.retries, degraded=st.degraded,
+                   wall_s=round(time.perf_counter() - t0, 3))
+        say(f"[5f] {row}")
+        if not np.array_equal(phi, phi_want):
+            raise AssertionError(f"5f: phi differs under the plan {label}")
+        if (st.retries, st.degraded, len(plan.log)) != (retries, 0, retries):
+            raise AssertionError(f"5f: plan {label}: {row}, expected "
+                                 f"{retries} retries")
+        out["plans"].append(row)
+    return out
+
+
 def main(argv) -> int:
     import torch
     from torch.autograd import DeviceType
@@ -684,7 +826,8 @@ def main(argv) -> int:
     profile = bool(argv)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import device as rdev
-    from repro_torch.core import serial
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core import faults, serial
     from repro_torch.core.graph import build_graph, canonical_edges
     from repro_torch.core.peel import estimate_working_set, truss_decompose
     from repro_torch.core.bottom_up import bottom_up_decompose
@@ -896,6 +1039,8 @@ def main(argv) -> int:
     def run_phase(tag, fn):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        # held when the phase starts (the probes keep earlier phases' inputs)
+        mem0 = torch.cuda.memory_allocated()
         l0 = {n: mod.LAUNCHES for n, mod in kernel_mods.items()}
         s0 = rdev.SYNCS
         prof = None
@@ -911,7 +1056,8 @@ def main(argv) -> int:
         phase_launches[tag] = launches
         say(f"[{tag}] wall {wall:.3f} s, host syncs {rdev.SYNCS - s0}, "
             f"launches {launches}, peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ("
+            f"{mem0 / 2**20:.1f} MiB held at its start)")
         if prof is not None:
             prof.__exit__(None, None, None)
             # device-side events (kernels, copies, memsets) of the phase,
@@ -995,6 +1141,24 @@ def main(argv) -> int:
     if phase_launches["5c top-down er2048"]["B2"] == 0:
         raise AssertionError("top-down never launched the B2 kernel on the "
                              "dense core")
+    # phase 5d: budgeted top-down on rmat15, at phase 4's memory_budget
+    phi15_td, tdst = run_phase("5d budgeted top-down rmat15",
+                               lambda: truss_decompose(
+                                   n15, e15, engine="top-down",
+                                   memory_budget=budget, with_stats=True,
+                                   device=dev))
+    say(f"[5d] memory_budget {budget} entries; OocStats rounds "
+        f"{tdst.rounds}, tri_total {tdst.tri_total}, tri_assigned "
+        f"{tdst.tri_assigned}, retries {tdst.retries}; stage-1 batch "
+        f"building {tdst.round_build_s:.3f} s, level candidates "
+        f"{tdst.candidate_build_s:.3f} s, level peels {tdst.peel_s:.3f} s; "
+        f"{tdst}")
+    if not np.array_equal(phi15_td, phi15):
+        raise AssertionError("budgeted top-down phi differs on rmat15")
+    if tdst.retries or phase_launches["5d budgeted top-down rmat15"][
+            "B1"] == 0:
+        raise AssertionError("budgeted top-down retried or never launched "
+                             "the B1 kernel")
     launches = {"frontier_peel": fk.LAUNCHES, "triangle_count": tk.LAUNCHES}
     if ak.LAUNCHES or bk.LAUNCHES:
         raise AssertionError("the truss path launched B3 or B4")
@@ -1021,6 +1185,8 @@ def main(argv) -> int:
     say(f"[truss path] B1 rows read {b1_path['rows_read']:,}, written "
         f"{b1_path['rows_written']:,}; the padded capacities of the same "
         f"calls {b1_path['padded_rows']:,}")
+    say(f"[truss path] B1 launches by phase: "
+        f"{ {t: c['B1'] for t, c in phase_launches.items()} }")
     say(f"[truss path] B1 launch shapes (count): "
         f"{sorted(p1.shapes.items(), key=lambda kv: -kv[1])[:8]}")
     trace_total = {}
@@ -1039,9 +1205,23 @@ def main(argv) -> int:
                                      f"the counter {launches[key]}")
             trace_total[key] = ms_
 
+    # -- phases 5e, 5f: kill and resume, the retry ladder ------------------
+    resilience = dict(kill_and_resume=kill_and_resume(
+        truss_decompose, ckpt, run_phase, n15, e15, budget, phi15, dev))
+
+    def check_b1(where):
+        args = b1_inputs(4, 4096, 1 << 14)
+        n_rows = torch.full((4,), 1 << 13, dtype=torch.int32, device=dev)
+        check_b1_live(torch, fk, fref, args, n_rows, where)
+
+    resilience["retry_ladder"] = retry_ladder(
+        torch, faults, truss_decompose, estimate_working_set, build_graph,
+        rmat, check_b1, dev)
+
     # -- phase 6: digests -----------------------------------------------------
     for name, phi in (("rmat17", phi17), ("rmat15", phi15),
                       ("rmat15", phi15_bu), ("rmat15", td15.phi),
+                      ("rmat15", phi15_td),
                       ("er2048", phi_er), ("er2048", td_er.phi)):
         check_digest(name, phi)
     names = {c: i for i, c in enumerate("abcdefghijkl")}
@@ -1056,8 +1236,9 @@ def main(argv) -> int:
         if not np.array_equal(got, want):
             raise AssertionError("Figure-2 graph: phi differs from alg2_truss")
     say("[6] phi equals the JAX digests on rmat17, rmat15 (in-memory, "
-        "bottom-up, top-down) and er2048 (in-memory, top-down); Figure-2 "
-        "equals alg2_truss")
+        "bottom-up, top-down, budgeted top-down) and er2048 (in-memory, "
+        "top-down); Figure-2 equals alg2_truss")
+    say(f"[5e-5f] {json.dumps(resilience)}")
 
     # -- phase 7: LM path, gemma3-4b served at full width --------------------
     cfg = dataclasses.replace(registry.get_config("gemma3-4b"),

@@ -21,30 +21,75 @@ Level k+1's candidate is pre-built from the masks before level k's result
 is read (a superset of U_{k+1}, which is sound); the edges level k removed
 are then killed through the peel's ``alive0`` mask.
 
+``partitioned_support`` is the triangle-credit variant of stage 1 that the
+budgeted top-down driver uses: exact supports of the whole graph under the
+budget, on the host.
+
+Resilience (as in the reference): a :class:`RoundJournal` snapshots the
+host-side state after completed rounds ("lb", "sup") and levels ("s2");
+``resume=True`` continues from the newest intact snapshot to the phi of an
+uninterrupted run.  A retryable device failure (``faults.is_retryable``:
+out of memory) walks a retry ladder — lane splits, then a restart of the
+rounds at half the budget — and anything else propagates.
+
 Deviation from the paper (as in the reference): Phi_2 is flagged exactly
 only in round 1 (later rounds measure supports on the shrunk working graph)
 and stage 2 starts at k = 2.
 
-Not ported yet (ROADMAP): the round journal and resume, the retry ladders,
-the graph store, the locality partitioner and the mesh paths.
+Not ported yet (ROADMAP): the graph store (A7), the locality partitioner
+and its zone state (A8), the per-part engine (A12) and the mesh paths with
+the ladder's mesh-drop rung (A13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import re
 import time
-from typing import Iterator, List, Tuple
+import warnings
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch.checkpoint import manager as ckpt
+from repro_torch.core import faults
 from repro_torch.core import graph as glib
 from repro_torch.core import partition as plib
 from repro_torch.core.peel import (local_threshold_peel, peel_classes_batched,
                                    reject_unported)
 from repro_torch.core.support import (list_triangles,
                                       support_from_triangle_list)
-from repro_torch.device import resolve_device
+from repro_torch.device import release_cached_blocks, resolve_device
 from repro_torch.kernels import check_kernel
+
+# The degradation ladder's floor for the per-round working-set budget:
+# halving below this cannot meaningfully shrink a dispatch, so at the floor
+# the failure propagates.
+_MIN_ROUND_BUDGET = 64
+
+
+class _RestartRounds(Exception):
+    """Control flow of the stage-1 degradation ladder: unwind the round
+    generator and restart it from the host state with a smaller budget
+    (smaller parts, smaller dispatches).  Completed rounds' folds are
+    idempotent scatters, so a restart loses at most the failed round's
+    device work."""
+
+    def __init__(self, budget: int):
+        super().__init__(f"restart partition rounds at budget={budget}")
+        self.budget = budget
+
+
+@dataclasses.dataclass
+class _Engine:
+    """Dispatch configuration shared by a run's device launches.  ``mesh``
+    stays None until the mesh paths are ported (ROADMAP A13), so the
+    ladders' mesh-drop rung is never taken."""
+
+    kernel: str = "auto"
+    device: object = None
+    mesh: object = None
 
 
 def _resolve_partitioner(partitioner: str, seed: int = 0):
@@ -96,6 +141,13 @@ class OocStats:
     tri_est: int = 0          # wedge-based triangle estimates, summed
     tri_rescans_avoided: int = 0  # rounds that filtered the previous
     #                           round's triangle list instead of listing
+    devices: int = 1          # devices a dispatch spans (1 until A13)
+    sharded_rounds: int = 0   # dispatches across a mesh (0 until A13)
+    retries: int = 0          # failed dispatches re-driven by a ladder
+    degraded: int = 0         # degradations taken (budget halvings)
+    checkpoints: int = 0      # journal snapshots written this run
+    resumed_round: int = -1   # round/level of the snapshot this run resumed
+    #                           from (-1: started fresh)
     round_build_s: float = 0.0      # host: stage-1 batch building
     candidate_build_s: float = 0.0  # host: candidate building
     peel_s: float = 0.0             # device peels, dispatch to result
@@ -126,6 +178,129 @@ class OocStats:
         self.tri_est += batch.tri_est
         self.ns_sweeps += 1
 
+    def as_dict(self) -> Dict[str, Union[int, float]]:
+        """JSON-safe snapshot of every field (the journal's metadata)."""
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Union[int, float]]) -> "OocStats":
+        """Rebuild from :meth:`as_dict` output, each value in its field's
+        type (the ``*_s`` timers stay floats); unknown keys are ignored."""
+        kinds = {f.name: type(f.default) for f in dataclasses.fields(cls)}
+        return cls(**{k: kinds[k](v) for k, v in d.items() if k in kinds})
+
+
+def _run_key(driver: str, n: int, edges: np.ndarray, budget,
+             partitioner, partitioner_seed: int, **extras) -> str:
+    """Digest binding a journal to one run configuration: the driver, the
+    canonical edge bytes and every parameter that changes the run's
+    trajectory, so ``resume=True`` never continues a snapshot of another
+    graph or configuration.  The same digest as the JAX package's for the
+    same arguments (``devices=1``)."""
+    pname = (partitioner if isinstance(partitioner, str)
+             else getattr(partitioner, "__name__", "custom"))
+    h = hashlib.sha256()
+    desc = "|".join(
+        [driver, f"n={n}", f"budget={budget}", f"part={pname}",
+         f"seed={partitioner_seed}"]
+        + [f"{k}={v}" for k, v in sorted(extras.items())])
+    h.update(desc.encode())
+    h.update(np.ascontiguousarray(edges, dtype=np.int64).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _parse_every(every: Union[int, str]) -> Tuple[str, float]:
+    """Normalize a ``checkpoint_every`` knob to ``(mode, value)``: an int is
+    an event count (``("events", k)``, floored at 1); a duration string —
+    ``"30s"``, ``"500ms"``, ``"5m"``, ``"1h"`` — a wall-clock interval
+    (``("time", seconds)``)."""
+    if isinstance(every, str):
+        match = re.fullmatch(r"\s*(\d+(?:\.\d+)?)\s*(ms|s|m|h)\s*", every)
+        if match is None:
+            raise ValueError(
+                f"checkpoint_every={every!r}: expected an event count or a "
+                f"duration like '30s', '500ms', '5m', '1h'")
+        secs = float(match.group(1)) * {"ms": 1e-3, "s": 1.0, "m": 60.0,
+                                        "h": 3600.0}[match.group(2)]
+        if secs <= 0:
+            raise ValueError(
+                f"checkpoint_every={every!r}: duration must be positive")
+        return "time", secs
+    return "events", float(max(1, int(every)))
+
+
+class RoundJournal:
+    """Round-granular snapshot journal over ``checkpoint.manager``.
+
+    One journal serves one run.  Each snapshot is a flat ``{name: array}``
+    tree of host state plus metadata ``{stage, index, run_key, stats,
+    **extra}``, written through the atomic tmp+rename save.  Steps continue
+    across resumes (the constructor seeds the counter from the directory),
+    and ``run_key`` is verified at load.  ``every`` gates writes by event
+    count or wall clock (:func:`_parse_every`); ``clock`` injects the time
+    source for tests.
+    """
+
+    def __init__(self, ckpt_dir: str, run_key: str, *,
+                 every: Union[int, str] = 1, keep: int = 3,
+                 clock: Callable[[], float] = time.monotonic):
+        self.ckpt_dir = ckpt_dir
+        self.run_key = run_key
+        self.mode, self.every = _parse_every(every)
+        self.keep = keep
+        self._clock = clock
+        self._last_write = clock()
+        self.seq = int(ckpt.latest_step(ckpt_dir) or 0)
+        self._events = 0
+
+    def _due(self) -> bool:
+        if self.mode == "time":
+            return self._clock() - self._last_write >= self.every
+        return self._events % int(self.every) == 0
+
+    def record(self, stage: str, index: int, arrays: Dict[str, np.ndarray],
+               stats: OocStats, **extra) -> bool:
+        """Journal one completed round or level when the ``every`` gate is
+        due; returns whether a snapshot was written.  The write is
+        synchronous, so a completed round is never lost to a crash."""
+        self._events += 1
+        if not self._due():
+            return False
+        self.seq += 1
+        stats.checkpoints += 1
+        meta = {"stage": stage, "index": int(index),
+                "run_key": self.run_key, "stats": stats.as_dict(), **extra}
+        # phi / lb / sup fit in int32; the restore paths cast back
+        arrays = {k: (np.asarray(v).astype(np.int32)
+                      if np.asarray(v).dtype == np.int64 else np.asarray(v))
+                  for k, v in arrays.items()}
+        ckpt.save(self.ckpt_dir, self.seq, arrays, metadata=meta,
+                  keep=self.keep)
+        if self.mode == "time":
+            self._last_write = self._clock()
+        return True
+
+    def load_latest(self):
+        """``(arrays, meta)`` of the newest intact snapshot, or None when
+        there is none (empty, or every snapshot corrupt: the run starts
+        fresh, with a warning).  A ``run_key`` mismatch raises."""
+        try:
+            tree, meta = ckpt.restore(self.ckpt_dir)
+        except FileNotFoundError:
+            return None
+        except ckpt.CheckpointCorruptionError as e:
+            warnings.warn(
+                f"no intact snapshot under {self.ckpt_dir!r} ({e}); "
+                f"starting the run from scratch", stacklevel=2)
+            return None
+        if meta.get("run_key") != self.run_key:
+            raise ValueError(
+                f"checkpoint_dir {self.ckpt_dir!r} holds a journal for a "
+                f"different run (run_key {meta.get('run_key')!r} != "
+                f"{self.run_key!r}); refusing to resume")
+        return tree, meta
+
 
 @dataclasses.dataclass
 class LowerBoundResult:
@@ -137,24 +312,38 @@ class LowerBoundResult:
 
 
 def _partition_rounds(
-    n: int, edges: np.ndarray, budget: int, part_fn, stats: OocStats,
-) -> Iterator[Tuple[int, plib.PartitionBatch, np.ndarray]]:
+    n: int, edges: np.ndarray, budget: int, part_fn, stats: OocStats, *,
+    with_incidence: bool = True, start_ids: Optional[np.ndarray] = None,
+) -> Iterator[Tuple[int, plib.PartitionBatch, np.ndarray, int, None]]:
     """Producer side of the double-buffered round pipeline.
 
-    Yields ``(round_idx, batch, cur_ids)`` per partition round, ``cur_ids``
-    mapping the batch's current-graph edge ids to original ids.  The round's
-    internal edges leave the working graph (``Graph.remove_edges``) before
-    the yield.  A round with no internal edge doubles the budget and yields
-    nothing.  The triangle list is enumerated once and filtered against the
-    surviving edges in later rounds.
+    Yields ``(round_idx, batch, cur_ids, cur_budget, zone_state)`` per
+    partition round: ``cur_ids`` maps the batch's current-graph edge ids to
+    original ids, ``cur_budget`` is the budget the round was built at (what
+    a resumed run restarts from), and ``zone_state`` is the locality
+    partitioner's state, None until that partitioner is ported (A8).  The
+    round's internal edges leave the working graph (``Graph.remove_edges``)
+    before the yield.  A round with no internal edge doubles the budget and
+    yields nothing.  The triangle list is enumerated once and filtered
+    against the surviving edges in later rounds.
+
+    ``start_ids`` restarts from a working graph that is a subset of
+    ``edges`` (resume and budget restarts); round numbering continues from
+    ``stats.rounds``.  The ``"partitioner"`` fault site fires at the start
+    of every round.
     """
-    g = glib.build_graph(n, edges)
-    cur_ids = np.arange(g.m, dtype=np.int64)
+    if start_ids is None:
+        cur_ids = np.arange(len(edges), dtype=np.int64)
+    else:
+        cur_ids = np.asarray(start_ids, dtype=np.int64)
+    g = glib.build_graph(n, edges[cur_ids])
     cur_budget = budget
     tris_cur = None      # full triangle list of g, g-local edge ids
     while g.m:
         t0 = time.perf_counter()
         stats.rounds += 1
+        faults.check(faults.PARTITIONER, stage=1, round=stats.rounds,
+                     budget=cur_budget)
         parts = part_fn(g, cur_budget, stats.rounds)
         if not parts:
             break
@@ -162,7 +351,8 @@ def _partition_rounds(
             tris_cur = np.asarray(list_triangles(g), np.int64).reshape(-1, 3)
         else:
             stats.tri_rescans_avoided += 1
-        batch = plib.build_partition_batch(g, parts, tris=tris_cur)
+        batch = plib.build_partition_batch(g, parts, tris=tris_cur,
+                                           with_incidence=with_incidence)
         stats.absorb_batch(batch)
         removed = np.zeros(g.m, dtype=bool)
         for bucket in batch.buckets:
@@ -180,31 +370,111 @@ def _partition_rounds(
         if len(tris_cur):
             tris_cur = remap[tris_cur[~removed[tris_cur].any(axis=1)]]
         stats.round_build_s += time.perf_counter() - t0
-        yield stats.rounds, batch, ids_snapshot
+        yield stats.rounds, batch, ids_snapshot, cur_budget, None
+
+
+def _retry_stage1_round(eng: _Engine, stats: OocStats, shape_cache,
+                        round_idx: int, batch, ids, fold_bucket, exc,
+                        cur_budget: int, max_retries: int) -> None:
+    """Blocking retry ladder for a failed stage-1 round.
+
+    A poisoned :class:`~repro_torch.core.peel.PendingPeel` cannot be
+    finalized again, but the buckets' host arrays survive, so the round is
+    re-dispatched from them.  The ladder, engaged only for retryable
+    failures (:func:`faults.is_retryable`):
+
+    1. lane-split retries — each bucket as ``split_bucket_lanes``
+       sub-buckets (split 2, then 4, ... up to ``max_retries`` doublings);
+    2. mesh drop (unreachable until A13);
+    3. budget halving — raise :class:`_RestartRounds`, down to
+       ``_MIN_ROUND_BUDGET``; below the floor the failure propagates.
+
+    Folds re-applied by a retry are idempotent (``lb`` is a running max,
+    the rest set constants).
+    """
+    split = 1
+    while True:
+        if not faults.is_retryable(exc):
+            raise exc
+        stats.retries += 1
+        if split < (1 << max_retries):
+            split *= 2
+        elif eng.mesh is not None:
+            eng.mesh = None
+            stats.degraded += 1
+        else:
+            if cur_budget <= _MIN_ROUND_BUDGET:
+                raise exc
+            stats.degraded += 1
+            raise _RestartRounds(max(cur_budget // 2, _MIN_ROUND_BUDGET))
+        release_cached_blocks(exc)
+        try:
+            for bi, bucket in enumerate(batch.buckets):
+                for si, sub in enumerate(
+                        plib.split_bucket_lanes(bucket, split)):
+                    h = peel_classes_batched(
+                        sub.sup, sub.tris, sub.alive,
+                        shape_cache=shape_cache, blocking=False,
+                        kernel=eng.kernel, device=eng.device,
+                        fault_ctx={"stage": 1, "round": round_idx,
+                                   "bucket": bi, "sub": si, "retry": split})
+                    stats.compiles += int(h.new_compile)
+                    stats.batches += 1
+                    phi_b, _ = h.result()
+                    fold_bucket(round_idx, sub, ids, phi_b)
+            return
+        except Exception as e:
+            exc = e
 
 
 def lower_bounding(n: int, edges: np.ndarray, budget: int,
                    partitioner: str = "sequential", *,
                    partitioner_seed: int = 0, kernel: str = "auto",
-                   device=None) -> LowerBoundResult:
-    """Algorithm 3: per-edge lower bounds plus the exact round-1 Phi_2."""
+                   device=None, journal: Optional[RoundJournal] = None,
+                   restored=None, max_retries: int = 2,
+                   engine_state: Optional[_Engine] = None
+                   ) -> LowerBoundResult:
+    """Algorithm 3: per-edge lower bounds plus the exact round-1 Phi_2.
+
+    ``journal`` snapshots the fold state after each completed round ("lb"),
+    ``restored`` (an ``(arrays, meta)`` pair from
+    :meth:`RoundJournal.load_latest`) resumes from one, and ``max_retries``
+    bounds the lane-split retries of a failed dispatch before the budget
+    halves (:func:`_retry_stage1_round`).
+    """
     check_kernel(kernel)
-    dev = resolve_device(device)
+    eng = engine_state if engine_state is not None else _Engine(
+        kernel=kernel, device=resolve_device(device))
     part_fn = _resolve_partitioner(partitioner, seed=partitioner_seed)
     edges = glib.canonical_edges(edges, n)
     m = len(edges)
     phi = np.zeros(m, dtype=np.int64)
     lb = np.full(m, 2, dtype=np.int64)
     in_gnew = np.zeros(m, dtype=bool)
+    alive = np.ones(m, dtype=bool)        # still in the working graph
     stats = OocStats()
+    start_budget = budget
+    if restored is not None:
+        # the fold state is four flat arrays over original edge ids; the
+        # working graph is edges[alive] (phi is exact under any partition
+        # sequence)
+        tree, meta = restored
+        phi = tree["phi"].astype(np.int64)
+        lb = tree["lb"].astype(np.int64)
+        in_gnew = tree["in_gnew"].astype(bool)
+        alive = tree["alive"].astype(bool)
+        stats = OocStats.from_dict(meta["stats"])
+        stats.resumed_round = int(meta["index"])
+        start_budget = int(meta.get("cur_budget", budget))
     shape_cache: set = set()
 
     def fold_bucket(round_idx, bucket, ids, phi_b):
-        """Fold one bucket's local trussness into lb/phi/in_gnew; internal
-        edges live in exactly one part, so the scatters never collide."""
+        """Fold one bucket's local trussness into lb/phi/in_gnew/alive;
+        internal edges live in exactly one part, so the scatters never
+        collide, and each is idempotent."""
         int_mask = bucket.internal
         glob = ids[bucket.edge_ids[int_mask]]
-        phi_int = phi_b[int_mask].astype(np.int64)
+        phi_int = np.asarray(phi_b)[int_mask].astype(np.int64)
         np.maximum.at(lb, glob, phi_int)
         if round_idx == 1:
             # exact Phi_2: internal support == global support in round 1
@@ -213,35 +483,76 @@ def lower_bounding(n: int, edges: np.ndarray, budget: int,
             in_gnew[glob[~is2]] = True
         else:
             in_gnew[glob] = True
+        alive[glob] = False
+
+    def record(round_idx, cur_b, zs):
+        if journal is not None:
+            journal.record("lb", round_idx,
+                           {"phi": phi, "lb": lb, "in_gnew": in_gnew,
+                            "alive": alive},
+                           stats, cur_budget=int(cur_b), zone_state=zs)
 
     def consume(pending):
-        round_idx, batch, ids, handles = pending
-        t0 = time.perf_counter()
-        results = [h.result()[0] for h in handles]
-        stats.peel_s += time.perf_counter() - t0
-        for bucket, phi_b in zip(batch.buckets, results):
-            fold_bucket(round_idx, bucket, ids, phi_b)
+        """Land one round's folds, retrying on failure, then journal it."""
+        round_idx, batch, ids, handles, cur_b, zs = pending
+        try:
+            t0 = time.perf_counter()
+            results = [h.result()[0] for h in handles]
+            stats.peel_s += time.perf_counter() - t0
+            for bucket, phi_b in zip(batch.buckets, results):
+                fold_bucket(round_idx, bucket, ids, phi_b)
+        except Exception as exc:
+            _retry_stage1_round(eng, stats, shape_cache, round_idx, batch,
+                                ids, fold_bucket, exc, cur_b, max_retries)
+        record(round_idx, cur_b, zs)
 
-    # double-buffered rounds: dispatch round r, let the generator build
-    # round r + 1, then consume r's results
-    pending = None
-    for round_idx, batch, ids in _partition_rounds(n, edges, budget, part_fn,
-                                                   stats):
-        t0 = time.perf_counter()
-        handles = []
-        for bucket in batch.buckets:
-            h = peel_classes_batched(bucket.sup, bucket.tris, bucket.alive,
-                                     shape_cache=shape_cache, blocking=False,
-                                     kernel=kernel, device=dev)
-            stats.compiles += int(h.new_compile)
-            handles.append(h)
-        stats.peel_s += time.perf_counter() - t0
-        if pending is not None:
-            stats.overlapped += 1
-            consume(pending)
-        pending = (round_idx, batch, ids, handles)
-    if pending is not None:
-        consume(pending)
+    # Double-buffered rounds: dispatch round r, let the generator build
+    # round r + 1, then consume r's results.  The outer loop is the budget
+    # restart of the ladder: the generator is rebuilt from the fold state's
+    # alive mask (an un-folded round's edges are all still alive).
+    while True:
+        start_ids = np.nonzero(alive)[0]
+        if not len(start_ids):
+            break
+        pending = None
+        try:
+            for round_idx, batch, ids, cur_b, zs in _partition_rounds(
+                    n, edges, start_budget, part_fn, stats,
+                    start_ids=start_ids):
+                t0 = time.perf_counter()
+                try:
+                    handles = []
+                    for bi, bucket in enumerate(batch.buckets):
+                        h = peel_classes_batched(
+                            bucket.sup, bucket.tris, bucket.alive,
+                            shape_cache=shape_cache, blocking=False,
+                            kernel=eng.kernel, device=eng.device,
+                            fault_ctx={"stage": 1, "round": round_idx,
+                                       "bucket": bi, "retry": 0})
+                        stats.compiles += int(h.new_compile)
+                        handles.append(h)
+                except Exception as exc:
+                    stats.peel_s += time.perf_counter() - t0
+                    # the previous round's handles are fine: land its folds
+                    # first, so a budget restart cannot lose it
+                    if pending is not None:
+                        consume(pending)
+                        pending = None
+                    _retry_stage1_round(eng, stats, shape_cache, round_idx,
+                                        batch, ids, fold_bucket, exc,
+                                        cur_b, max_retries)
+                    record(round_idx, cur_b, zs)
+                    continue
+                stats.peel_s += time.perf_counter() - t0
+                if pending is not None:
+                    stats.overlapped += 1
+                    consume(pending)
+                pending = (round_idx, batch, ids, handles, cur_b, zs)
+            if pending is not None:
+                consume(pending)
+            break
+        except _RestartRounds as r:
+            start_budget = r.budget
     return LowerBoundResult(edges=edges, phi=phi, lb=lb, in_gnew=in_gnew,
                             stats=stats)
 
@@ -257,26 +568,86 @@ class BottomUpResult:
     stats: OocStats
 
 
+def _retry_candidate_peel(eng: _Engine, stats: OocStats, exc, dispatch,
+                          max_retries: int = 2):
+    """Blocking retry ladder for a failed stage-2 / top-down candidate
+    peel.  The candidate's host arrays survive, so a retry re-dispatches
+    the same level (``dispatch(retry)`` dispatches, blocks and returns the
+    result).  After ``max_retries`` failures the mesh would be
+    dropped (unreachable until A13); then the failure propagates."""
+    attempt = 0
+    while True:
+        if not faults.is_retryable(exc):
+            raise exc
+        stats.retries += 1
+        attempt += 1
+        if attempt > max_retries:
+            if eng.mesh is None:
+                raise exc
+            eng.mesh = None
+            stats.degraded += 1
+            attempt = 0
+        release_cached_blocks(exc)
+        try:
+            return dispatch(attempt)
+        except Exception as e:
+            exc = e
+
+
 def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
                         partitioner: str = "sequential", *,
                         partitioner_seed: int = 0, kernel: str = "auto",
                         device=None, mesh=None, checkpoint_dir=None,
-                        resume: bool = False,
+                        checkpoint_every: Union[int, str] = 1,
+                        resume: bool = False, checkpoint_keep: int = 3,
+                        max_retries: int = 2,
                         store=None) -> BottomUpResult:
     """Algorithm 4: full decomposition under a working-set budget (NS edge
-    entries per part).  ``device=None`` means the CUDA card; the mesh,
-    journal and store arguments of the reference raise
-    ``NotImplementedError`` when set."""
-    reject_unported(mesh=mesh, checkpoint_dir=checkpoint_dir, resume=resume,
-                    store=store)
+    entries per part).  ``device=None`` means the CUDA card.
+
+    ``checkpoint_dir`` journals every ``checkpoint_every``-th completed
+    stage-1 round ("lb" snapshots) and stage-2 level ("s2"), keeping the
+    newest ``checkpoint_keep``; ``resume=True`` restores the newest intact
+    snapshot of this configuration and continues, to the phi of an
+    uninterrupted run.  ``max_retries`` bounds the lane-split retries of a
+    failed dispatch.  ``OocStats.retries / degraded / checkpoints /
+    resumed_round`` record all of it.  ``mesh`` and ``store`` raise
+    ``NotImplementedError`` (ROADMAP A13, A7).
+    """
+    reject_unported(mesh=mesh, store=store)
     check_kernel(kernel)
     dev = resolve_device(device)
-    lbres = lower_bounding(n, edges, budget, partitioner,
-                           partitioner_seed=partitioner_seed, kernel=kernel,
-                           device=dev)
-    edges, lb, stats = lbres.edges, lbres.lb, lbres.stats
-    phi = lbres.phi.copy()
-    remaining = lbres.in_gnew.copy()
+    edges = glib.canonical_edges(edges, n)
+    journal = snap = None
+    if checkpoint_dir is not None:
+        key = _run_key("bottom_up", n, edges, budget, partitioner,
+                       partitioner_seed, devices=1)
+        journal = RoundJournal(checkpoint_dir, key, every=checkpoint_every,
+                               keep=checkpoint_keep)
+        if resume:
+            snap = journal.load_latest()
+
+    eng = _Engine(kernel=kernel, device=dev)
+    if snap is not None and snap[1]["stage"] == "s2":
+        # stage 1 is complete in the snapshot: rebuild the stage-2 state
+        tree, meta = snap
+        phi = tree["phi"].astype(np.int64)
+        lb = tree["lb"].astype(np.int64)
+        remaining = tree["remaining"].astype(bool)
+        stats = OocStats.from_dict(meta["stats"])
+        stats.resumed_round = int(meta["index"])
+        k0 = int(meta["index"]) + 1     # the journaled level is complete
+    else:
+        lbres = lower_bounding(
+            n, edges, budget, partitioner, partitioner_seed=partitioner_seed,
+            journal=journal, max_retries=max_retries, engine_state=eng,
+            restored=snap if snap is not None
+            and snap[1]["stage"] == "lb" else None)
+        phi = lbres.phi.copy()
+        lb = lbres.lb
+        remaining = lbres.in_gnew.copy()
+        stats = lbres.stats
+        k0 = 2
     cand_sizes: List[int] = []
     shape_cache: set = set()
 
@@ -305,7 +676,18 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
         finally:
             stats.candidate_build_s += time.perf_counter() - t0
 
-    k = 2
+    def peel_level(k_b, sup, tris, removable, alive_h, retry):
+        """Dispatch one level's peel (non-blocking)."""
+        h = local_threshold_peel(
+            sup, tris, removable, k_b - 2, alive0=alive_h,
+            shape_cache=shape_cache, blocking=False, kernel=eng.kernel,
+            device=eng.device,
+            fault_ctx={"stage": 2, "k": int(k_b), "retry": retry})
+        stats.compiles += int(h.new_compile)
+        stats.batches += 1
+        return h
+
+    k = k0
     pre = None          # candidate pre-built while the previous level peeled
     while remaining.any():
         # skip empty classes: jump k straight to the smallest lower bound
@@ -328,24 +710,174 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
                 tris[t_alive], len(h_ids)).astype(np.int32)
         else:
             sup = np.zeros(len(h_ids), np.int32)
+        removable = internal[h_ids]
+        handle = dispatch_exc = None
         t0 = time.perf_counter()
-        handle = local_threshold_peel(
-            sup, tris, internal[h_ids], k - 2, alive0=alive_h,
-            shape_cache=shape_cache, blocking=False, kernel=kernel,
-            device=dev)
+        try:
+            handle = peel_level(k, sup, tris, removable, alive_h, 0)
+        except Exception as exc:
+            dispatch_exc = exc          # enters the retry ladder below
         stats.peel_s += time.perf_counter() - t0
-        stats.compiles += int(handle.new_compile)
-        stats.batches += 1
         pre = build_candidate(k + 1)
         t0 = time.perf_counter()
-        _, removed = handle.result()
+        try:
+            if dispatch_exc is not None:
+                raise dispatch_exc
+            _, removed = handle.result()
+        except Exception as exc:
+            removed = _retry_candidate_peel(
+                eng, stats, exc, lambda retry: peel_level(
+                    k, sup, tris, removable, alive_h, retry).result()[1],
+                max_retries)
         stats.peel_s += time.perf_counter() - t0
         rm_glob = h_ids[removed]
         phi[rm_glob] = k
         remaining[rm_glob] = False
+        if journal is not None:
+            journal.record("s2", k,
+                           {"phi": phi, "lb": lb, "remaining": remaining},
+                           stats)
         k += 1
 
     kmax = int(phi.max()) if len(phi) else 2
     return BottomUpResult(edges=edges, phi=phi, kmax=kmax,
                           rounds=stats.rounds, scans=stats.scans,
                           candidate_sizes=cand_sizes, stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# partitioned_support: exact supports under a budget (budgeted top-down)
+# ---------------------------------------------------------------------------
+
+def _support_credit_triples(bucket, round_idx: int, bi: int, sub_idx: int,
+                            retry: int, *,
+                            chunk_rows: int = 1 << 16) -> np.ndarray:
+    """Flat parent-edge-id triples of one bucket's captured triangles — the
+    compute half of a ``partitioned_support`` round, with no scatter into
+    the global ``sup``: the credits are not idempotent, so a failed bucket
+    is recomputed whole and folded once.  The ``"support"`` fault site
+    fires here, before any credit exists.  The lane-wise gather walks
+    ``bucket.tris`` in slabs of ``chunk_rows`` rows."""
+    faults.check(faults.SUPPORT, stage=1, round=round_idx, bucket=bi,
+                 sub=sub_idx, retry=retry)
+    B = bucket.n_lanes
+    # local ids -> parent edge ids, lane-wise; the drop slot cap_e maps to
+    # -1, so padding rows vanish with the mask
+    eid_pad = np.concatenate(
+        [bucket.edge_ids, np.full((B, 1), -1, np.int64)], axis=1)
+    lane = np.arange(B)[:, None, None]
+    step = max(1, int(chunk_rows))
+    out: List[np.ndarray] = []
+    for lo in range(0, bucket.tris.shape[1], step):
+        parent = eid_pad[lane, bucket.tris[:, lo:lo + step]]
+        out.append(parent[parent[:, :, 0] >= 0].reshape(-1))
+    return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+
+def _retry_support_round(eng: _Engine, stats: OocStats, round_idx: int,
+                         batch, exc, cur_budget: int,
+                         max_retries: int) -> List[np.ndarray]:
+    """Retry ladder of a failed triangle-credit round, the sibling of
+    :func:`_retry_stage1_round`: lane splits (every triangle lives in one
+    lane of one bucket, so the sub-buckets' triples are exactly the
+    batch's), the mesh drop (unreachable until A13), then a budget-halving
+    restart (the un-credited round's internal edges are all still alive).
+    Returns the (sub-)buckets' triples; the caller folds them once."""
+    split = 1
+    while True:
+        if not faults.is_retryable(exc):
+            raise exc
+        stats.retries += 1
+        if split < (1 << max_retries):
+            split *= 2
+        elif eng.mesh is not None:
+            eng.mesh = None
+            stats.degraded += 1
+        else:
+            if cur_budget <= _MIN_ROUND_BUDGET:
+                raise exc
+            stats.degraded += 1
+            raise _RestartRounds(max(cur_budget // 2, _MIN_ROUND_BUDGET))
+        try:
+            return [_support_credit_triples(sub, round_idx, bi, si, split)
+                    for bi, bucket in enumerate(batch.buckets)
+                    for si, sub in enumerate(
+                        plib.split_bucket_lanes(bucket, split))]
+        except Exception as e:
+            exc = e
+
+
+def partitioned_support(n: int, edges: np.ndarray, budget: int,
+                        partitioner: str = "sequential",
+                        engine: str = "batched", with_stats: bool = False,
+                        *, partitioner_seed: int = 0, mesh=None,
+                        journal: Optional[RoundJournal] = None,
+                        restored=None, max_retries: int = 2, store=None):
+    """Exact sup(e) w.r.t. the whole graph, under a working-set budget (the
+    triangle-credit variant of Algorithm 3 that top-down's stage 1 uses).
+
+    Invariant: every triangle is credited exactly once — in the first round
+    in which one of its edges becomes internal (its internal edges lie in
+    one part, and it loses an edge from the working graph the moment it is
+    credited).  So the credits sum to 3T.
+
+    All the work is host numpy: no peel runs, so the batches are built
+    without supports or incidence and no device is taken.  ``journal`` /
+    ``restored`` snapshot and resume the credit state after each completed
+    round ("sup" snapshots).  A failed round (the ``"support"`` fault site)
+    walks :func:`_retry_support_round`; a round's triples all exist before
+    any is folded.  ``engine="perpart"``, ``mesh`` and ``store`` raise
+    ``NotImplementedError`` (ROADMAP A12, A13, A7).
+    """
+    reject_unported(mesh=mesh, store=store)
+    if engine == "perpart":
+        raise NotImplementedError(
+            "engine='perpart' is not ported to repro_torch yet: ROADMAP A12 "
+            "(the per-part seed baseline)")
+    if engine != "batched":
+        raise ValueError(f"unknown engine {engine!r}")
+    part_fn = _resolve_partitioner(partitioner, seed=partitioner_seed)
+    edges = glib.canonical_edges(edges, n)
+    m = len(edges)
+    sup = np.zeros(m, dtype=np.int64)
+    alive = np.ones(m, dtype=bool)
+    stats = OocStats()
+    cur_budget = budget
+    if restored is not None:
+        tree, meta = restored
+        sup = tree["sup"].astype(np.int64)
+        alive = tree["alive"].astype(bool)
+        stats = OocStats.from_dict(meta["stats"])
+        stats.resumed_round = int(meta["index"])
+        cur_budget = int(meta.get("cur_budget", budget))
+
+    eng = _Engine()
+    while True:
+        start_ids = np.nonzero(alive)[0]
+        if not len(start_ids):
+            break
+        try:
+            for round_idx, batch, ids, cur_b, zs in _partition_rounds(
+                    n, edges, cur_budget, part_fn, stats,
+                    with_incidence=False, start_ids=start_ids):
+                try:
+                    trips = [
+                        _support_credit_triples(bucket, round_idx, bi, 0, 0)
+                        for bi, bucket in enumerate(batch.buckets)]
+                except Exception as exc:
+                    trips = _retry_support_round(eng, stats, round_idx,
+                                                 batch, exc, cur_b,
+                                                 max_retries)
+                # fold only after every bucket's triples exist
+                for trip in trips:
+                    np.add.at(sup, ids[trip], 1)
+                for bucket in batch.buckets:
+                    alive[ids[bucket.edge_ids[bucket.internal]]] = False
+                if journal is not None:
+                    journal.record("sup", round_idx,
+                                   {"sup": sup, "alive": alive}, stats,
+                                   cur_budget=int(cur_b), zone_state=zs)
+            break
+        except _RestartRounds as r:
+            cur_budget = r.budget
+    return (sup, stats) if with_stats else sup

@@ -233,6 +233,39 @@ class PartitionBatch:
         return self.tri_assigned / self.tri_total if self.tri_total else 1.0
 
 
+def split_bucket_lanes(bucket: PartBucket, factor: int) -> List[PartBucket]:
+    """Split a bucket along its lane axis into up to ``factor`` sub-buckets.
+
+    Lanes are independent subproblems (each lane's triangles reference only
+    its own slots), so peeling the sub-buckets one at a time equals the
+    single peel while each launch holds 1/``factor`` of the device state:
+    the lane-split rung of the out-of-core retry ladder.  ``factor`` is
+    clamped to the lane count.  Every per-lane array is sliced as it is, so
+    a batch built with ``with_incidence=False`` splits too.
+    """
+    B = bucket.n_lanes
+    factor = max(1, min(int(factor), B))
+    if factor == 1:
+        return [bucket]
+    step = -(-B // factor)
+    out: List[PartBucket] = []
+    for lo in range(0, B, step):
+        hi = min(lo + step, B)
+        eid = bucket.edge_ids[lo:hi]
+        part = bucket.part_of[lo:hi]
+        out.append(PartBucket(
+            cap_e=bucket.cap_e, cap_t=bucket.cap_t,
+            n_parts=int(len(np.unique(part[part >= 0]))),
+            n_real_lanes=int(max(0, min(hi, bucket.n_real_lanes) - lo)),
+            sup=bucket.sup[lo:hi], tris=bucket.tris[lo:hi],
+            alive=bucket.alive[lo:hi], indptr=bucket.indptr[lo:hi],
+            tids=bucket.tids[lo:hi], edge_ids=eid,
+            internal=bucket.internal[lo:hi], part_of=part,
+            real_edges=int((eid >= 0).sum()),
+        ))
+    return out
+
+
 def assign_triangles(g: Graph, tris: np.ndarray,
                      part_of: np.ndarray) -> np.ndarray:
     """Part index of every triangle; -1 when its vertices span 3 parts.

@@ -31,11 +31,13 @@ device.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.graph import build_graph, canonical_edges
 from repro_torch.core.support import (_pow2_ceil, _pow4_ceil,
                                       list_triangles,
@@ -56,8 +58,6 @@ from repro_torch.kernels.frontier_peel.ref import BIG
 _NOT_PORTED = {
     "mesh": "A13 (distributed mesh paths)",
     "mesh_axes": "A13 (distributed mesh paths)",
-    "checkpoint_dir": "A6/A9 (round journal and resume)",
-    "resume": "A6/A9 (round journal and resume)",
     "store": "A7 (graph store)",
     "host_memory_budget": "A7 (graph store)",
     "edits": "A11 (incremental maintenance)",
@@ -404,12 +404,17 @@ class PendingPeel:
     The finalize handle is consumed before it runs: a failing ``result()``
     raises the original error once and poisons the handle; later calls
     raise a ``RuntimeError`` chained to that error.  ``new_compile`` is
-    known at dispatch time (the shape-cache lookup).
+    known at dispatch time (the shape-cache lookup).  ``fault_ctx``
+    (optional) names the dispatch at the ``"finalize"`` fault site, which
+    fires before the copy to the host and poisons the handle like a real
+    device error would.
     """
 
-    def __init__(self, finalize, new_compile: bool):
+    def __init__(self, finalize, new_compile: bool,
+                 fault_ctx: Optional[dict] = None):
         self._finalize = finalize
         self.new_compile = bool(new_compile)
+        self._fault_ctx = fault_ctx
         self._out = None
         self._error = None
 
@@ -421,6 +426,8 @@ class PendingPeel:
         if self._finalize is not None:
             finalize, self._finalize = self._finalize, None
             try:
+                if self._fault_ctx is not None:
+                    faults.check(faults.FINALIZE, **self._fault_ctx)
                 self._out = finalize()
             except BaseException as e:
                 self._error = e
@@ -437,7 +444,8 @@ def _note_shape(shape_cache, key) -> bool:
 
 
 def peel_classes_batched(sup_b, tris_b, alive_b, *, shape_cache=None,
-                         blocking=True, kernel: str = "auto", device=None):
+                         blocking=True, kernel: str = "auto", device=None,
+                         fault_ctx: Optional[dict] = None):
     """Local trussness of every lane of one partition bucket.
 
     Host arrays in: (B, cap_e) sup / alive and (B, cap_t, 3) triangles in
@@ -452,9 +460,15 @@ def peel_classes_batched(sup_b, tris_b, alive_b, *, shape_cache=None,
     reports whether this call added one (the drivers' ``compiles``
     counter: the distinct launch shapes of a run).
 
+    ``fault_ctx`` names this call at the ``"dispatch"`` fault site, checked
+    before anything is uploaded, and its handle at ``"finalize"``; None (the
+    default) skips both.
+
     Returns (phi (B, cap_e) int32, stats (B, N_STATS) int32, new_shape) as
     numpy when blocking, else a :class:`PendingPeel` yielding (phi, stats).
     """
+    if fault_ctx is not None:
+        faults.check(faults.DISPATCH, **fault_ctx)
     check_kernel(kernel)
     dev = resolve_device(device)
     tris_np = np.asarray(tris_b)
@@ -462,7 +476,7 @@ def peel_classes_batched(sup_b, tris_b, alive_b, *, shape_cache=None,
     if (tris_np[:, :, 0] >= cap_e).all():
         phi = np.where(np.asarray(alive_b), 2, 0).astype(np.int32)
         st = np.zeros((tris_np.shape[0], N_STATS), np.int32)
-        pending = PendingPeel(lambda: (phi, st), False)
+        pending = PendingPeel(lambda: (phi, st), False, fault_ctx)
     else:
         new = _note_shape(shape_cache, (tuple(np.shape(sup_b)),
                                         tuple(tris_np.shape)))
@@ -477,7 +491,8 @@ def peel_classes_batched(sup_b, tris_b, alive_b, *, shape_cache=None,
                                                          dev),
             cap_t=tris_np.shape[1], kernel=kernel)
         pending = PendingPeel(
-            lambda: (phi_d.cpu().numpy(), st_d.cpu().numpy()), new)
+            lambda: (phi_d.cpu().numpy(), st_d.cpu().numpy()), new,
+            fault_ctx)
     if not blocking:
         return pending
     phi, st = pending.result()
@@ -486,7 +501,8 @@ def peel_classes_batched(sup_b, tris_b, alive_b, *, shape_cache=None,
 
 def local_threshold_peel(sup0, tris, removable, thresh, *, alive0=None,
                          shape_cache=None, blocking=True,
-                         kernel: str = "auto", device=None):
+                         kernel: str = "auto", device=None,
+                         fault_ctx: Optional[dict] = None):
     """Single-level peel of a compacted candidate subgraph on padded shapes.
 
     The per-k class extraction of both out-of-core drivers peels one
@@ -497,10 +513,15 @@ def local_threshold_peel(sup0, tris, removable, thresh, *, alive0=None,
     ``alive0`` masks some out (dead edges never enter the frontier and their
     triangles never repair supports; ``sup0`` must count fully-alive
     triangles only).  ``removable`` marks the internal/tentative edges.
+    ``fault_ctx`` names the call at the ``"dispatch"`` and ``"finalize"``
+    fault sites, as in :func:`peel_classes_batched`.  The round loop runs at
+    dispatch, so a real device OOM surfaces here, not at finalize.
 
     Host arrays in; returns (alive_mask, removed_mask, new_shape) as numpy
     when blocking, else a :class:`PendingPeel` yielding the two masks.
     """
+    if fault_ctx is not None:
+        faults.check(faults.DISPATCH, **fault_ctx)
     check_kernel(kernel)
     dev = resolve_device(device)
     m, T = int(len(sup0)), int(len(tris))
@@ -511,7 +532,7 @@ def local_threshold_peel(sup0, tris, removable, thresh, *, alive0=None,
         # no triangles: removals cascade nothing, one sweep is the fixpoint
         removed = removable & (np.asarray(sup0) <= thresh)
         alive_out = alive0 & ~removed
-        pending = PendingPeel(lambda: (alive_out, removed), False)
+        pending = PendingPeel(lambda: (alive_out, removed), False, fault_ctx)
     else:
         new = _note_shape(shape_cache, (_pow4_ceil(max(m, 1)),
                                         _pow4_ceil(max(T, 1))))
@@ -524,7 +545,7 @@ def local_threshold_peel(sup0, tris, removable, thresh, *, alive0=None,
             alive = alive_dev.cpu().numpy() > 0
             return alive, alive0 & ~alive
 
-        pending = PendingPeel(_finish, new)
+        pending = PendingPeel(_finish, new, fault_ctx)
     if not blocking:
         return pending
     alive, removed = pending.result()
@@ -547,7 +568,8 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
                     memory_budget=None, partitioner: str = "sequential",
                     partitioner_seed: int = 0, kernel: str = "auto",
                     with_stats: bool = False, device=None, mesh=None,
-                    mesh_axes=None, checkpoint_dir=None, resume: bool = False,
+                    mesh_axes=None, checkpoint_dir=None, checkpoint_every=1,
+                    resume: bool = False, max_retries: int = 2,
                     store=None, host_memory_budget=None, edits=None,
                     phi0=None):
     """End-to-end decomposition: phi (m,) int64 per canonical edge.
@@ -555,23 +577,31 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
     ``engine``: "auto" (default) peels in memory (frontier or dense, see
     ``_pick_engine``), or routes to the batched bottom-up engine when
     ``memory_budget`` is given and ``estimate_working_set`` exceeds it;
-    "frontier" / "dense" force an in-memory engine; "bottom-up" forces the
-    out-of-core engine, with a per-part budget of ``memory_budget``
-    working-set entries (default m // 8) and ``partitioner`` "sequential" or
-    "random" (reseeded per round from ``partitioner_seed``).
+    "frontier" / "dense" force an in-memory engine; "bottom-up" /
+    "top-down" force an out-of-core engine, with a per-part budget of
+    ``memory_budget`` working-set entries (default m // 8) and
+    ``partitioner`` "sequential" or "random" (reseeded per round from
+    ``partitioner_seed``).
+
+    ``checkpoint_dir`` journals the out-of-core engines' rounds and levels
+    every ``checkpoint_every`` events (an int, or a duration such as
+    ``"30s"``); ``resume=True`` continues from the newest intact snapshot,
+    to the phi of an uninterrupted run.  ``max_retries`` bounds the
+    lane-split retries a device OOM gets before the engine degrades to
+    smaller rounds.  The in-memory engines run one peel and have nothing to
+    journal: a ``checkpoint_dir`` routed to them warns and is ignored.
 
     ``kernel``: "auto" only — the fused round kernel on CUDA, its plain
-    version on the CPU (out-of-core engine; the in-memory engines have none).
-    ``device``: None means the CUDA card (raises without CUDA); pass "cpu"
-    for the plain versions on the host.  ``with_stats`` also returns a
-    :class:`PeelStats` (frontier), None (dense) or an ``OocStats``
-    (bottom-up).  The remaining arguments of the JAX entry point are not
-    ported yet and raise ``NotImplementedError`` when set.
+    version on the CPU (out-of-core engines; the in-memory engines have
+    none).  ``device``: None means the CUDA card (raises without CUDA);
+    pass "cpu" for the plain versions on the host.  ``with_stats`` also
+    returns a :class:`PeelStats` (frontier), None (dense) or an
+    ``OocStats`` (out-of-core).  The remaining arguments of the JAX entry
+    point are not ported yet and raise ``NotImplementedError`` when set.
     """
-    reject_unported(mesh=mesh, mesh_axes=mesh_axes,
-                    checkpoint_dir=checkpoint_dir, resume=resume,
-                    store=store, host_memory_budget=host_memory_budget,
-                    edits=edits, phi0=phi0)
+    reject_unported(mesh=mesh, mesh_axes=mesh_axes, store=store,
+                    host_memory_budget=host_memory_budget, edits=edits,
+                    phi0=phi0)
     check_kernel(kernel)
     dev = resolve_device(device)
     if memory_budget is not None and memory_budget <= 0:
@@ -585,25 +615,31 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
     est = estimate_working_set(g)
     if engine == "auto" and memory_budget is not None and est > memory_budget:
         engine = "bottom-up"
-    if engine == "top-down":
-        raise NotImplementedError(
-            "engine='top-down' runs budgeted top-down, which is not ported "
-            "to repro_torch yet: ROADMAP A10 (partitioned_support); call "
-            "top_down_decompose without a budget")
-    if engine == "bottom-up":
+    if engine in ("bottom-up", "top-down"):
         from repro_torch.core.bottom_up import bottom_up_decompose
+        from repro_torch.core.top_down import top_down_decompose
 
         if memory_budget is not None:
             # working-set entries -> NS edge cost (sum of incident degrees)
             part_budget = max(64, (2 * g.m * memory_budget) // max(est, 1))
         else:
             part_budget = max(64, g.m // 8)
-        res = bottom_up_decompose(n, edges, part_budget,
-                                  partitioner=partitioner,
-                                  partitioner_seed=partitioner_seed,
-                                  kernel=kernel, device=dev)
+        ooc = dict(partitioner=partitioner, partitioner_seed=partitioner_seed,
+                   kernel=kernel, device=dev, checkpoint_dir=checkpoint_dir,
+                   checkpoint_every=checkpoint_every, resume=resume,
+                   max_retries=max_retries)
+        if engine == "bottom-up":
+            res = bottom_up_decompose(n, edges, part_budget, **ooc)
+        else:
+            res = top_down_decompose(n, edges, budget=part_budget, **ooc)
         phi = np.asarray(res.phi).astype(np.int64)
         return (phi, res.stats) if with_stats else phi
+    if checkpoint_dir is not None:
+        warnings.warn(
+            "checkpoint_dir is ignored by the in-memory engines (one peel, "
+            "nothing to journal); pass a memory_budget that routes to an "
+            "out-of-core engine, or engine='bottom-up'/'top-down'",
+            stacklevel=2)
     # the skew-aware listing: the same triangles as the reference's
     # list_triangles_np in another row order, which changes neither phi
     # nor PeelStats

@@ -16,24 +16,32 @@ the surviving tentative edges are Phi_k.  Classified edges that share no
 triangle with an undecided edge are pruned (Steps 7-9).  The next level's
 candidate is pre-built before the current level's result is read.
 
+With a ``budget``, stage 1 is ``bottom_up.partitioned_support``: exact
+supports under the working-set budget, by partition rounds on the host.
+The levels then peel through the fused round kernel as without one.
+
 Deviation from the paper (as in the reference, which proves it exact):
 external unclassified edges are excluded from the candidate peel;
 ``faithful_proc8=True`` restores the paper's literal Procedure 8.
 
-Not ported yet (ROADMAP A10): the budgeted stage 1
-(``partitioned_support``), journaling, retry ladders and mesh paths.
+Journal and retries as in ``bottom_up``: stage-1 credit rounds are "sup"
+snapshots, completed levels "td" snapshots; a failed level peel walks
+``bottom_up._retry_candidate_peel``.  Not ported yet: the graph store (A7)
+and the mesh paths (A13).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 
 from repro_torch.core import graph as glib
-from repro_torch.core.bottom_up import OocStats
+from repro_torch.core.bottom_up import (OocStats, RoundJournal, _Engine,
+                                        _retry_candidate_peel, _run_key,
+                                        partitioned_support)
 from repro_torch.core.peel import local_threshold_peel, reject_unported
 from repro_torch.core.support import (edge_support_auto, list_triangles,
                                       support_from_triangle_list)
@@ -89,22 +97,32 @@ class TopDownResult:
 
 
 def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
-                       budget: Optional[int] = None, *,
-                       faithful_proc8: bool = False, kernel: str = "auto",
-                       device=None, mesh=None, checkpoint_dir=None,
-                       resume: bool = False, store=None) -> TopDownResult:
+                       budget: Optional[int] = None,
+                       partitioner: str = "sequential",
+                       faithful_proc8: bool = False, *,
+                       partitioner_seed: int = 0, kernel: str = "auto",
+                       checkpoint_dir=None,
+                       checkpoint_every: Union[int, str] = 1,
+                       resume: bool = False, checkpoint_keep: int = 3,
+                       max_retries: int = 2, store=None, mesh=None,
+                       device=None) -> TopDownResult:
     """Algorithm 7: the top-t k-classes (all classes if t is None).
 
-    ``device=None`` means the CUDA card.  A ``budget`` (the budgeted
-    stage 1) and the mesh, journal and store arguments of the reference
-    raise ``NotImplementedError``.
+    ``budget`` (NS edge entries per part) runs stage 1 as
+    ``partitioned_support`` with ``partitioner`` / ``partitioner_seed``;
+    without it the supports of the whole graph come from
+    ``edge_support_auto`` on ``device``.
+
+    ``checkpoint_dir`` journals stage-1 rounds ("sup") and completed levels
+    ("td") every ``checkpoint_every`` events, keeping ``checkpoint_keep``;
+    ``resume=True`` continues from the newest intact snapshot to the phi of
+    an uninterrupted run (psi, G_new and its triangle list are recomputed
+    from the journaled supports).  ``max_retries`` bounds the retries of a
+    failed level peel or credit round.  ``device=None`` means the CUDA
+    card; ``store`` and ``mesh`` raise ``NotImplementedError`` (ROADMAP
+    A7, A13).
     """
-    reject_unported(mesh=mesh, checkpoint_dir=checkpoint_dir, resume=resume,
-                    store=store)
-    if budget is not None:
-        raise NotImplementedError(
-            "top_down_decompose(budget=...) is not ported to repro_torch "
-            "yet: ROADMAP A10 (budgeted top-down, partitioned_support)")
+    reject_unported(mesh=mesh, store=store)
     check_kernel(kernel)
     dev = resolve_device(device)
     edges = glib.canonical_edges(edges, n)
@@ -114,8 +132,33 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
     if m == 0:
         return TopDownResult(edges, phi, [], 2, [], 0, stats)
 
-    # stage 1: exact supports; Phi_2 = zero-support edges
-    sup = edge_support_auto(glib.build_graph(n, edges), device=dev)
+    journal = snap = None
+    if checkpoint_dir is not None:
+        key = _run_key("top_down", n, edges, budget, partitioner,
+                       partitioner_seed, t=t, faithful=bool(faithful_proc8),
+                       devices=1)
+        journal = RoundJournal(checkpoint_dir, key, every=checkpoint_every,
+                               keep=checkpoint_keep)
+        if resume:
+            snap = journal.load_latest()
+    td_snap = snap if snap is not None and snap[1].get("stage") == "td" \
+        else None
+
+    # stage 1: exact supports; Phi_2 = zero-support edges.  A "td" snapshot
+    # carries the finished supports, so stage 1 is skipped.
+    if td_snap is not None:
+        sup = np.asarray(td_snap[0]["sup"], dtype=np.int64)
+        stats = OocStats.from_dict(td_snap[1]["stats"])
+        stats.resumed_round = int(td_snap[1]["index"])
+    elif budget is None:
+        sup = edge_support_auto(glib.build_graph(n, edges), device=dev)
+    else:
+        sup, stats = partitioned_support(
+            n, edges, budget, partitioner, with_stats=True,
+            partitioner_seed=partitioner_seed, journal=journal,
+            restored=snap if snap is not None
+            and snap[1].get("stage") == "sup" else None,
+            max_retries=max_retries)
     phi[sup == 0] = 2
     alive = sup > 0                      # G_new
     psi = upper_bounds(n, edges, sup)
@@ -125,6 +168,7 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
     gnew_ids = np.nonzero(alive)[0]
     tris_l = np.asarray(list_triangles(gnew), dtype=np.int64).reshape(-1, 3)
     shape_cache: set = set()
+    eng = _Engine(kernel=kernel, device=dev)
     # masks below are in G_new-local edge ids
     alive_l = np.ones(gnew.m, dtype=bool)
     classified_l = np.zeros(gnew.m, dtype=bool)
@@ -134,6 +178,17 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
     cand_sizes: List[int] = []
     pruned_total = 0
     k = int(psi_l.max()) if gnew.m else 2
+    if td_snap is not None:
+        # the snapshot's masks are the state after level ``index``
+        # completed, so the next level is ``index - 1``
+        tree, meta = td_snap
+        phi = np.asarray(tree["phi"], dtype=np.int64)
+        alive_l = np.asarray(tree["alive_l"], dtype=bool)
+        classified_l = np.asarray(tree["classified_l"], dtype=bool)
+        classes = [int(c) for c in meta.get("classes", [])]
+        cand_sizes = [int(c) for c in meta.get("cand_sizes", [])]
+        pruned_total = int(meta.get("pruned", 0))
+        k = int(meta["index"]) - 1
 
     def build_candidate(k_b: int):
         """U_k from the current alive / classified masks, the candidate
@@ -174,6 +229,17 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
         tris_loc = slot[tris_l[tmask]]
         return k_b, h_l, tris_loc, internal, int(in_h.sum())
 
+    def peel_level(k_b, sup0, tris_loc, removable, alive_h, retry):
+        """Dispatch one level's peel (non-blocking)."""
+        h = local_threshold_peel(
+            sup0, tris_loc, removable, k_b - 3, alive0=alive_h,
+            shape_cache=shape_cache, blocking=False, kernel=eng.kernel,
+            device=eng.device,
+            fault_ctx={"stage": "td", "k": int(k_b), "retry": retry})
+        stats.compiles += int(h.new_compile)
+        stats.batches += 1
+        return h
+
     pre = None          # candidate pre-built while the previous level peeled
     while k >= 3 and (t is None or len(classes) < t):
         undecided = alive_l & ~classified_l
@@ -202,20 +268,28 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
                 tris_loc[t_alive], len(h_l)).astype(np.int32)
         else:
             sup0 = np.zeros(len(h_l), np.int32)
+        removable = tentative[h_l]
+        handle = dispatch_exc = None
         t0 = time.perf_counter()
-        handle = local_threshold_peel(
-            sup0, tris_loc, tentative[h_l], k - 3, alive0=alive_h,
-            shape_cache=shape_cache, blocking=False, kernel=kernel,
-            device=dev)
+        try:
+            handle = peel_level(k, sup0, tris_loc, removable, alive_h, 0)
+        except Exception as exc:
+            dispatch_exc = exc          # enters the retry ladder below
         stats.peel_s += time.perf_counter() - t0
-        stats.compiles += int(handle.new_compile)
-        stats.batches += 1
         if not faithful_proc8:
             pre = build_candidate(k - 1)
         ta = (alive_l[tris_l[:, 0]] & alive_l[tris_l[:, 1]]
               & alive_l[tris_l[:, 2]])
         t0 = time.perf_counter()
-        surv_l, _ = handle.result()
+        try:
+            if dispatch_exc is not None:
+                raise dispatch_exc
+            surv_l, _ = handle.result()
+        except Exception as exc:
+            surv_l = _retry_candidate_peel(
+                eng, stats, exc, lambda retry: peel_level(
+                    k, sup0, tris_loc, removable, alive_h, retry).result()[0],
+                max_retries)
         stats.peel_s += time.perf_counter() - t0
         phi_k = np.zeros(gnew.m, dtype=bool)
         phi_k[h_l[surv_l]] = True
@@ -233,6 +307,14 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
             prunable = alive_l & classified_l & (needs == 0)
             pruned_total += int(prunable.sum())
             alive_l &= ~prunable
+        if journal is not None:
+            journal.record(
+                "td", k,
+                {"phi": phi, "sup": sup, "alive_l": alive_l,
+                 "classified_l": classified_l},
+                stats, classes=[int(c) for c in classes],
+                cand_sizes=[int(c) for c in cand_sizes],
+                pruned=int(pruned_total))
         k -= 1
 
     kmax = classes[0] if classes else 2

@@ -33,3 +33,11 @@ def host_read(*values: torch.Tensor) -> list:
     global SYNCS
     SYNCS += 1
     return torch.stack([v.reshape(()).to(torch.int64) for v in values]).tolist()
+
+
+def release_cached_blocks(exc: BaseException) -> None:
+    """After a device OOM, return the caching allocator's free blocks to the
+    driver, so a retry's smaller launch does not fail on blocks the failed
+    one left cached.  A no-op for other errors and before CUDA starts."""
+    if isinstance(exc, torch.OutOfMemoryError) and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()

@@ -232,9 +232,11 @@ def test_quickstart_port_prints_same_classes():
 def test_port_runs_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import numpy as np\n"
         "from repro_torch.core.peel import truss_decompose\n"
-        "from repro_torch.core import bottom_up, top_down, serial\n"
+        "from repro_torch.core import bottom_up, top_down, serial, faults\n"
+        "from repro_torch.checkpoint import manager\n"
         "from repro_torch import interop\n"
         "import repro_torch.kernels.frontier_peel.kernel\n"
         "import repro_torch.kernels.triangle_count.ops\n"
@@ -247,6 +249,11 @@ def test_port_runs_with_jax_blocked():
         "e = np.array([[0,1],[0,2],[1,2],[2,3],[1,3],[0,3],[3,4]])\n"
         "phi = truss_decompose(5, e, device='cpu')\n"
         "assert (phi == serial.alg2_truss(5, e)).all(), phi\n"
+        "import tempfile\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    td = top_down.top_down_decompose(5, e, budget=64, device='cpu',"
+        " checkpoint_dir=d)\n"
+        "    assert (td.phi == phi).all() and manager.latest_step(d)\n"
         "cfg = dataclasses.replace(reduced_lm(registry.get_config("
         "'gemma3-4b')), use_flash_kernel=True, window=8)\n"
         "p = T.init_params(torch.Generator().manual_seed(0), cfg)\n"
@@ -335,13 +342,30 @@ def test_moe_configs_raise(arch):
     dict(host_memory_budget=1 << 20), dict(edits=[("+", 0, 3)]),
     dict(phi0=np.zeros(3)), dict(partitioner="locality", engine="bottom-up"),
     dict(engine="top-down")])
-def test_unported_arguments_raise(kw):
+def test_unported_arguments_raise(kw, tmp_path):
+    """Unported arguments raise naming their ROADMAP item.  Three cases
+    have been ported since (journal and resume, budgeted top-down) and
+    check what replaced the error: on the in-memory route
+    ``checkpoint_dir`` warns and is ignored and ``resume`` is ignored, as
+    in the reference; ``engine="top-down"`` gives the reference's phi."""
     e = np.array([[0, 1], [1, 2], [0, 2]])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpeel.truss_decompose(3, e, device="cpu", **kw)
+    want = jpeel.truss_decompose(3, e, **{
+        k: v for k, v in kw.items() if k == "engine"})
+    if "checkpoint_dir" in kw:
+        with pytest.warns(UserWarning, match="in-memory"):
+            got = tpeel.truss_decompose(3, e, device="cpu",
+                                        checkpoint_dir=str(tmp_path))
+        assert not list(tmp_path.iterdir())
+    elif "resume" in kw or kw == dict(engine="top-down"):
+        got = tpeel.truss_decompose(3, e, device="cpu", **kw)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tpeel.truss_decompose(3, e, device="cpu", **kw)
+        return
+    np.testing.assert_array_equal(got, want)
 
 
-def test_invalid_arguments_rejected():
+def test_invalid_arguments_rejected(tmp_path):
     e = np.array([[0, 1], [1, 2], [0, 2]])
     with pytest.raises(ValueError):
         tpeel.truss_decompose(3, e, kernel="pallas", device="cpu")
@@ -351,11 +375,18 @@ def test_invalid_arguments_rejected():
         tpeel.truss_decompose(3, e, engine="bogus", device="cpu")
     with pytest.raises(ValueError):
         tbu.bottom_up_decompose(3, e, 64, partitioner="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttd.top_down_decompose(3, e, budget=64, device="cpu")
+    # budget= and checkpoint_dir= are ported: a budgeted top-down gives the
+    # reference's phi, and bottom-up journals; store= still raises (A7)
+    np.testing.assert_array_equal(
+        ttd.top_down_decompose(3, e, budget=64, device="cpu").phi,
+        jtd.top_down_decompose(3, e, budget=64).phi)
+    res = tbu.bottom_up_decompose(3, e, 64, device="cpu",
+                                  checkpoint_dir=str(tmp_path))
+    assert res.stats.checkpoints > 0 and list(tmp_path.iterdir())
     for fn in (tbu.bottom_up_decompose, ttd.top_down_decompose):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            fn(3, e, 64, device="cpu", store=object())
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(3, e, 64, device="cpu", checkpoint_dir="x") \
-                if fn is tbu.bottom_up_decompose else \
-                fn(3, e, device="cpu", mesh=object())
+            fn(3, e, 64, device="cpu", checkpoint_dir=str(tmp_path),
+               mesh=object())
     assert len(tpeel.truss_decompose(3, np.zeros((0, 2)), device="cpu")) == 0
