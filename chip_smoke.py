@@ -35,7 +35,15 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    segments would move;
 3. in-memory route: ``truss_decompose`` on R-MAT scale 17;
 4. bottom-up route: ``truss_decompose(engine="bottom-up", memory_budget=
-   estimate_working_set // 16)`` on R-MAT scale 15;
+   estimate_working_set // 16)`` on R-MAT scale 15; then the same call
+   4b. with ``partitioner="locality"``: its rounds and triangle capture
+       beside phase 4's, phi equal, B1 launched;
+   4c. with ``store=`` a ``ChunkedDiskStore`` in a temporary directory, in
+       the reference benchmark's disk regime (``store_budget``: a host
+       budget of an eighth of the graph's bytes, chunks of a sixteenth of
+       that): phi equal, bytes spilled and chunks read, the store's peak
+       resident bytes within the budget, a prefetch hit rate of at least
+       0.5, B1 launched; its I/O counters and its wall beside phase 4's;
 5. top-down: ``top_down_decompose`` on R-MAT scale 15, then on a dense core
    (Erdos-Renyi, 2,048 vertices, 314,000 edges) that the density rule routes
    to the dense-support kernel; then (5d) budgeted top-down,
@@ -58,9 +66,20 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
        splits; a stage-2 finalize; a top-down level; the ``support`` site)
        and must give the in-memory phi with the planned retries.  That
        provoked OOM is the only error the smoke catches;
-6. phi of every graph of phases 3-5 (5d included) against digests of the
-   JAX package's answer, and the paper's Figure-2 graph against the port's
-   serial oracle;
+   5g. budgeted top-down with the locality partitioner through a disk
+       store (``store_budget``'s regime) on 5f's graph: phi equal to its
+       in-memory phi, ``partitioned_support`` wrote and read chunks;
+   5h. a kill in the middle of a spill: an uninterrupted journaled
+       bottom-up run through a disk store on 5f's graph counts its chunk
+       writes; a child process (importing only ``repro_torch``) runs the
+       same call and is SIGKILLed by a ``kill`` rule at the ``chunk-write``
+       site at half that count, leaving its chunk files; the smoke resumes
+       the call with a new store on the same directory, which must sweep
+       the dead run's files; the resumed phi must equal the in-memory one,
+       ``resumed_round`` at least 0;
+6. phi of every graph of phases 3-5 (4b, 4c and 5d included) against
+   digests of the JAX package's answer, and the paper's Figure-2 graph
+   against the port's serial oracle;
 7. LM serving: gemma3-4b at full width (34 layers, d_model 2560, vocab
    262,144, bf16, random weights from a generator seeded with 0, the flash
    kernel on) serves 8 requests of 2,048-token prompts and 32 greedy decode
@@ -70,7 +89,8 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    how far the plain path's logits move with a window off by one key and
    with no window at all, as a measure of what that limit can see.
 
-Two main paths: the truss path (phases 3-5d) and the LM path (phase 7).
+Two main paths: the truss path (phases 3-5d) and the LM path (phase 7);
+5e-5h read their own launches, each through ``run_phase``.
 Every launch counter is set to 0 just before each and read just after it,
 and each kernel of the path must have launched (B1 and B2 on the truss
 path, B3 on the LM path; no model path reaches B4).  The kernels are then
@@ -812,6 +832,162 @@ def retry_ladder(torch, faults, truss_decompose, estimate_working_set,
     return out
 
 
+# the graph store's counters of OocStats (4c, 5g, 5h)
+IO_COUNTERS = ("chunk_reads", "chunk_writes", "bytes_spilled",
+               "prefetch_hits", "prefetch_misses", "tri_spill_rows",
+               "tri_reload_peak_rows")
+
+
+def store_budget(g) -> tuple[int, int, int]:
+    """The disk store's regime of the reference benchmark's disk rows
+    (``benchmarks/run.py``, ``table4disk``): the packed graph's bytes (its
+    eight arrays), a host budget of an eighth of them, and chunks of a
+    sixteenth of the budget, at least 4,096 bytes."""
+    graph_bytes = sum(int(getattr(g, a).nbytes) for a in g._ARRAYS)
+    host_budget = graph_bytes // 8
+    return graph_bytes, host_budget, max(host_budget // 16, 4096)
+
+
+def io_row(st, peak: int) -> dict:
+    row = {k: int(getattr(st, k)) for k in IO_COUNTERS}
+    row.update(prefetch_hit_rate=round(st.prefetch_hit_rate, 4),
+               peak_resident_bytes=int(peak))
+    return row
+
+
+# phase 5h's child: bottom-up on rmat13 through a disk store, journaled at
+# every round, killed by a "kill" rule at the nth chunk write.  It imports
+# only repro_torch.
+SPILL_KILL_CHILD = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from repro_torch.core import faults
+from repro_torch.core.peel import truss_decompose
+from repro_torch.core.store import ChunkedDiskStore
+from repro_torch.data.graphgen import rmat
+
+journal, store_dir, budget, host_budget, chunk_bytes, nth, device = \
+    sys.argv[1:8]
+n, edges = rmat(13, 8, seed=5)
+faults.install(faults.FaultPlan([faults.FaultRule(
+    site=faults.CHUNK_WRITE, kind="kill", nth=int(nth))]))
+with ChunkedDiskStore(store_dir, host_memory_budget=int(host_budget),
+                      chunk_bytes=int(chunk_bytes)) as store:
+    truss_decompose(n, edges, engine="bottom-up", memory_budget=int(budget),
+                    store=store, checkpoint_dir=journal, checkpoint_every=1,
+                    device=device)
+print("the child was not killed")
+"""
+
+
+def store_phases(truss_decompose, estimate_working_set, build_graph, rmat,
+                 ChunkedDiskStore, ckpt, run_phase, phase_launches,
+                 dev) -> dict:
+    """Phases 5g and 5h on R-MAT scale 13, seed 5, at
+    ``estimate_working_set // 16``, through a disk store in the regime of
+    :func:`store_budget`.
+
+    5g: budgeted top-down with the locality partitioner; phi must equal
+    the in-memory phi, ``partitioned_support`` must have written and read
+    chunks, the store must have held no more than its budget, and B1 must
+    have launched.  5h: an uninterrupted journaled bottom-up run through
+    the store counts its chunk writes; a child process (importing only
+    ``repro_torch``) runs the same call and is SIGKILLed by a ``kill`` rule
+    at half that many writes, leaving its ``*.bin`` files; this process
+    resumes the call with a new store on the same directory, which must
+    sweep the dead run's files, and the resumed phi must equal the
+    in-memory one with ``resumed_round >= 0``.
+    """
+    n, edges = rmat(13, 8, seed=5)
+    g = build_graph(n, edges)
+    budget = estimate_working_set(g) // 16
+    graph_bytes, host_budget, chunk_bytes = store_budget(g)
+    store_kw = dict(host_memory_budget=host_budget, chunk_bytes=chunk_bytes)
+    phi_want = truss_decompose(n, edges, device=dev)
+    out = dict(graph="rmat13", m=g.m, memory_budget=budget,
+               graph_bytes=graph_bytes, **store_kw)
+
+    tag = "5g locality top-down rmat13 disk store"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as sd, \
+            ChunkedDiskStore(sd, **store_kw) as store:
+        phi, st = run_phase(tag, lambda: truss_decompose(
+            n, edges, engine="top-down", memory_budget=budget,
+            partitioner="locality", store=store, with_stats=True,
+            device=dev))
+        peak = store.stats.peak_resident_bytes
+    out["5g"] = dict(rounds=st.rounds, tri_locality=round(st.tri_locality, 4),
+                     launches=phase_launches[tag]["B1"], **io_row(st, peak))
+    say(f"[5g] {out['5g']}")
+    if not np.array_equal(phi, phi_want):
+        raise AssertionError("5g: the disk-store locality top-down phi "
+                             "differs from the in-memory phi")
+    if st.chunk_writes == 0 or st.chunk_reads == 0 or peak > host_budget:
+        raise AssertionError(f"5g: partitioned_support wrote "
+                             f"{st.chunk_writes} and read {st.chunk_reads} "
+                             f"chunks, peak {peak} of a {host_budget} budget")
+    if phase_launches[tag]["B1"] == 0:
+        raise AssertionError("5g never launched the B1 kernel")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spill_") as top:
+        def call(journal, store, **kw):
+            return truss_decompose(
+                n, edges, engine="bottom-up", memory_budget=budget,
+                store=store, checkpoint_dir=os.path.join(top, journal),
+                checkpoint_every=1, with_stats=True, device=dev, **kw)
+
+        with ChunkedDiskStore(os.path.join(top, "full"), **store_kw) as st_:
+            phi_full, full = run_phase(
+                "5h uninterrupted bottom-up rmat13 disk store",
+                lambda: call("full-journal", st_))
+        nth = full.chunk_writes // 2
+        sd = os.path.join(top, "store")
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        child = subprocess.run(
+            [sys.executable, "-c", SPILL_KILL_CHILD,
+             os.path.join(top, "journal"), sd, str(budget), str(host_budget),
+             str(chunk_bytes), str(nth), str(dev)], env=env,
+            capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if child.returncode != -signal.SIGKILL:
+            raise AssertionError(
+                f"5h: the child exited with {child.returncode}, not by "
+                f"SIGKILL: {child.stdout[-800:]} {child.stderr[-2000:]}")
+        dead = {f for f in os.listdir(sd) if f.endswith((".bin", ".tmp"))}
+        if not any(f.endswith(".bin") for f in dead):
+            raise AssertionError("5h: the killed child left no chunk file")
+        _, meta = ckpt.restore(os.path.join(top, "journal"))
+        tag = "5h resume bottom-up rmat13 disk store"
+        with ChunkedDiskStore(sd, **store_kw) as store:
+            swept = not dead & set(os.listdir(sd))
+            phi_r, rst = run_phase(tag, lambda: call("journal", store,
+                                                     resume=True))
+            left = dead & set(os.listdir(sd))
+            peak = store.stats.peak_resident_bytes
+    out["5h"] = dict(
+        chunk_writes_uninterrupted=full.chunk_writes, kill_at_write=nth,
+        child_s=round(child_s, 3), dead_files=len(dead),
+        journal_stage=meta["stage"], journal_index=meta["index"],
+        resumed_round=rst.resumed_round, swept_at_open=swept,
+        launches=phase_launches[tag]["B1"], **io_row(rst, peak))
+    say(f"[5h] child killed by SIGKILL at chunk write {nth} of "
+        f"{full.chunk_writes} after {child_s:.3f} s, leaving {len(dead)} "
+        f"files; resumed {out['5h']}")
+    if not (np.array_equal(phi_full, phi_want)
+            and np.array_equal(phi_r, phi_want)):
+        raise AssertionError("5h: the uninterrupted or the resumed phi "
+                             "differs from the in-memory phi")
+    if rst.resumed_round < 0 or not swept or left or peak > host_budget:
+        raise AssertionError(f"5h: resumed_round {rst.resumed_round}, "
+                             f"dead files swept at open {swept}, left "
+                             f"{sorted(left)[:4]}, peak {peak} of "
+                             f"{host_budget}")
+    if phase_launches[tag]["B1"] == 0:
+        raise AssertionError("5h: the resumed run never launched B1")
+    return out
+
+
 def main(argv) -> int:
     import torch
     from torch.autograd import DeviceType
@@ -831,6 +1007,7 @@ def main(argv) -> int:
     from repro_torch.core.graph import build_graph, canonical_edges
     from repro_torch.core.peel import estimate_working_set, truss_decompose
     from repro_torch.core.bottom_up import bottom_up_decompose
+    from repro_torch.core.store import ChunkedDiskStore
     from repro_torch.core.support import edge_support
     from repro_torch.core.top_down import top_down_decompose
     from repro_torch.data.graphgen import erdos_renyi, rmat
@@ -1034,6 +1211,7 @@ def main(argv) -> int:
     p2 = Probe(torch, tk, "triangle_count", size=lambda A, **kw: A.numel(),
                bound=lambda A, **kw: b2_bound(A.shape[0])[0])
     phase_launches = {}
+    phase_walls = {}
     trace_ms: dict = {}        # --profile: device ms and calls by kernel name
 
     def run_phase(tag, fn):
@@ -1054,6 +1232,7 @@ def main(argv) -> int:
         wall = time.perf_counter() - t0
         launches = {n: mod.LAUNCHES - l0[n] for n, mod in kernel_mods.items()}
         phase_launches[tag] = launches
+        phase_walls[tag] = wall
         say(f"[{tag}] wall {wall:.3f} s, host syncs {rdev.SYNCS - s0}, "
             f"launches {launches}, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ("
@@ -1116,6 +1295,51 @@ def main(argv) -> int:
         raise AssertionError("bottom-up phi differs from the in-memory route")
     if phase_launches["4 bottom-up rmat15"]["B1"] == 0:
         raise AssertionError("bottom-up never launched the B1 kernel")
+    # phase 4b: phase 4's call with the locality partitioner
+    phi15_loc, lst = run_phase("4b locality bottom-up rmat15",
+                               lambda: truss_decompose(
+                                   n15, e15, engine="bottom-up",
+                                   memory_budget=budget,
+                                   partitioner="locality", with_stats=True,
+                                   device=dev))
+    say(f"[4b] rounds {lst.rounds} (sequential, phase 4: {ost.rounds}), "
+        f"tri_locality {lst.tri_locality:.4f} ({ost.tri_locality:.4f}); "
+        f"stage-1 batch building {lst.round_build_s:.3f} s "
+        f"({ost.round_build_s:.3f} s), device peels {lst.peel_s:.3f} s "
+        f"({ost.peel_s:.3f} s), candidates {lst.candidate_build_s:.3f} s; "
+        f"OocStats {lst}")
+    if not np.array_equal(phi15_loc, phi15):
+        raise AssertionError("4b: the locality bottom-up phi differs")
+    if phase_launches["4b locality bottom-up rmat15"]["B1"] == 0:
+        raise AssertionError("4b never launched the B1 kernel")
+    # phase 4c: phase 4's call with the working graph in a disk store
+    graph_bytes, host_budget, chunk_bytes = store_budget(g15)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as sd, \
+            ChunkedDiskStore(sd, host_memory_budget=host_budget,
+                             chunk_bytes=chunk_bytes) as store:
+        phi15_disk, dst = run_phase("4c disk-store bottom-up rmat15",
+                                    lambda: truss_decompose(
+                                        n15, e15, engine="bottom-up",
+                                        memory_budget=budget, store=store,
+                                        with_stats=True, device=dev))
+        peak = store.stats.peak_resident_bytes
+    disk = dict(graph_bytes=graph_bytes, host_memory_budget=host_budget,
+                chunk_bytes=chunk_bytes, **io_row(dst, peak))
+    wall4, wall4c = (phase_walls["4 bottom-up rmat15"],
+                     phase_walls["4c disk-store bottom-up rmat15"])
+    say(f"[4c] {disk}; wall {wall4c:.3f} s against phase 4's {wall4:.3f} s "
+        f"(slowdown {wall4c / wall4:.3f}); stage-1 batch building "
+        f"{dst.round_build_s:.3f} s, device peels {dst.peel_s:.3f} s")
+    if not np.array_equal(phi15_disk, phi15):
+        raise AssertionError("4c: the disk-store bottom-up phi differs")
+    if not (dst.bytes_spilled > 0 and dst.chunk_reads > 0
+            and peak <= host_budget and dst.prefetch_hit_rate >= 0.5):
+        raise AssertionError(f"4c: spilled {dst.bytes_spilled} bytes, read "
+                             f"{dst.chunk_reads} chunks, peak {peak} of "
+                             f"{host_budget}, hit rate "
+                             f"{dst.prefetch_hit_rate:.4f} (>= 0.5 wanted)")
+    if phase_launches["4c disk-store bottom-up rmat15"]["B1"] == 0:
+        raise AssertionError("4c never launched the B1 kernel")
 
     # phase 5: top-down, sparse then a dense core
     td15 = run_phase("5a top-down rmat15",
@@ -1218,9 +1442,15 @@ def main(argv) -> int:
         torch, faults, truss_decompose, estimate_working_set, build_graph,
         rmat, check_b1, dev)
 
+    # -- phases 5g, 5h: the disk store under top-down, a kill mid-spill -----
+    resilience["store"] = dict(rmat15_4c=disk, **store_phases(
+        truss_decompose, estimate_working_set, build_graph, rmat,
+        ChunkedDiskStore, ckpt, run_phase, phase_launches, dev))
+
     # -- phase 6: digests -----------------------------------------------------
     for name, phi in (("rmat17", phi17), ("rmat15", phi15),
-                      ("rmat15", phi15_bu), ("rmat15", td15.phi),
+                      ("rmat15", phi15_bu), ("rmat15", phi15_loc),
+                      ("rmat15", phi15_disk), ("rmat15", td15.phi),
                       ("rmat15", phi15_td),
                       ("er2048", phi_er), ("er2048", td_er.phi)):
         check_digest(name, phi)
@@ -1236,9 +1466,10 @@ def main(argv) -> int:
         if not np.array_equal(got, want):
             raise AssertionError("Figure-2 graph: phi differs from alg2_truss")
     say("[6] phi equals the JAX digests on rmat17, rmat15 (in-memory, "
-        "bottom-up, top-down, budgeted top-down) and er2048 (in-memory, "
-        "top-down); Figure-2 equals alg2_truss")
-    say(f"[5e-5f] {json.dumps(resilience)}")
+        "bottom-up, locality bottom-up, disk-store bottom-up, top-down, "
+        "budgeted top-down) and er2048 (in-memory, top-down); Figure-2 "
+        "equals alg2_truss")
+    say(f"[5e-5h] {json.dumps(resilience)}")
 
     # -- phase 7: LM path, gemma3-4b served at full width --------------------
     cfg = dataclasses.replace(registry.get_config("gemma3-4b"),

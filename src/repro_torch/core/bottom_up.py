@@ -36,13 +36,21 @@ Deviation from the paper (as in the reference): Phi_2 is flagged exactly
 only in round 1 (later rounds measure supports on the shrunk working graph)
 and stage 2 starts at k = 2.
 
-Not ported yet (ROADMAP): the graph store (A7), the locality partitioner
-and its zone state (A8), the per-part engine (A12) and the mesh paths with
-the ladder's mesh-drop rung (A13).
+With a graph store (``store=``, ``core.store``) the round loop spills the
+working graph and its triangle list between rounds: each successor graph
+is spilled chunk-wise (untouched chunks alias the predecessor's files),
+the predecessor released, and the next round's arrays prefetched before the
+yield, so the store's reads overlap the device peel.  The locality
+partitioner's zone state (the previous round's capture) is journaled with
+each stage-1 snapshot and restored on resume.
+
+Not ported yet (ROADMAP): the per-part engine (A12) and the mesh paths
+with the ladder's mesh-drop rung (A13).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import re
@@ -56,8 +64,10 @@ from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core import faults
 from repro_torch.core import graph as glib
 from repro_torch.core import partition as plib
+from repro_torch.core import support as sup_lib
 from repro_torch.core.peel import (local_threshold_peel, peel_classes_batched,
                                    reject_unported)
+from repro_torch.core.store import GraphStore
 from repro_torch.core.support import (list_triangles,
                                       support_from_triangle_list)
 from repro_torch.device import release_cached_blocks, resolve_device
@@ -92,23 +102,55 @@ class _Engine:
     mesh: object = None
 
 
+class _AdaptiveLocality:
+    """The locality partitioner with its feedback: ``_partition_rounds``
+    calls :meth:`observe` with each built batch, and the next round's zone
+    scales with the capture that round achieved (``partition._zone_mult``).
+    """
+
+    def __init__(self, fn):
+        self._fn = fn
+        self.prev_locality: float | None = None
+
+    def __call__(self, g, budget, round_idx):
+        return self._fn(g, budget, prev_locality=self.prev_locality)
+
+    def observe(self, batch: plib.PartitionBatch) -> None:
+        if batch.tri_total:
+            self.prev_locality = batch.tri_locality
+
+
+def _zone_state(part_fn):
+    """The partitioner's state for a journal snapshot: the locality
+    partitioner's previous capture (a float), None for the stateless ones.
+    Without it a resumed run would plan its rounds from the cold default
+    (phi equal, rounds and counters not)."""
+    state = getattr(part_fn, "prev_locality", None)
+    return None if state is None else float(state)
+
+
+def _restore_zone_state(part_fn, state) -> None:
+    """Reinstall a journaled :func:`_zone_state` into the partitioner."""
+    if state is not None and hasattr(part_fn, "prev_locality"):
+        part_fn.prev_locality = float(state)
+
+
 def _resolve_partitioner(partitioner: str, seed: int = 0):
     """Normalize a partitioner name to fn(graph, budget, round_idx) -> parts.
 
     The randomized partitioner is re-seeded every round (``seed + round``):
     Chu–Cheng's guarantee that crossing edges eventually co-locate holds
-    only under re-randomization.
+    only under re-randomization.  "locality" gives a fresh
+    :class:`_AdaptiveLocality` per call, so its feedback stays in one run.
     """
-    if partitioner == "locality":
-        raise NotImplementedError(
-            "partitioner='locality' is not ported to repro_torch yet: "
-            "ROADMAP A8 (locality partitioner)")
     if partitioner not in plib.PARTITIONERS:
         raise ValueError(f"unknown partitioner {partitioner!r}; expected one "
                          f"of {sorted(plib.PARTITIONERS)}")
     fn = plib.PARTITIONERS[partitioner]
     if partitioner == "random":
         return lambda g, b, r: fn(g, b, seed=seed + r)
+    if partitioner == "locality":
+        return _AdaptiveLocality(fn)
     return lambda g, b, r: fn(g, b)
 
 
@@ -148,9 +190,24 @@ class OocStats:
     checkpoints: int = 0      # journal snapshots written this run
     resumed_round: int = -1   # round/level of the snapshot this run resumed
     #                           from (-1: started fresh)
+    chunk_reads: int = 0      # graph-store chunks read back
+    chunk_writes: int = 0     # graph-store chunks written
+    bytes_spilled: int = 0    # bytes written; aliased chunks cost 0
+    prefetch_hits: int = 0    # chunk requests served by a scheduled read
+    prefetch_misses: int = 0  # chunk requests read synchronously
+    tri_spill_rows: int = 0   # largest triangle list (rows) spilled
+    tri_reload_peak_rows: int = 0  # most triangle rows held at once while
+    #                           reading a spilled list back
     round_build_s: float = 0.0      # host: stage-1 batch building
     candidate_build_s: float = 0.0  # host: candidate building
     peel_s: float = 0.0             # device peels, dispatch to result
+
+    @property
+    def prefetch_hit_rate(self) -> float:
+        """Share of chunk requests whose read the prefetch thread had
+        already scheduled."""
+        total = self.prefetch_hits + self.prefetch_misses
+        return self.prefetch_hits / total if total else 1.0
 
     @property
     def padding_waste(self) -> float:
@@ -239,16 +296,22 @@ class RoundJournal:
     across resumes (the constructor seeds the counter from the directory),
     and ``run_key`` is verified at load.  ``every`` gates writes by event
     count or wall clock (:func:`_parse_every`); ``clock`` injects the time
-    source for tests.
+    source for tests.  With the run's graph ``store``, each snapshot first
+    absorbs the store's counters into ``stats`` (a resumed run's counters
+    then include the I/O before the crash), and its payload is held in the
+    store's ``IoAccount`` while it is written, so checkpoint bytes and
+    chunk bytes share one budget.
     """
 
     def __init__(self, ckpt_dir: str, run_key: str, *,
                  every: Union[int, str] = 1, keep: int = 3,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 store: Optional[GraphStore] = None):
         self.ckpt_dir = ckpt_dir
         self.run_key = run_key
         self.mode, self.every = _parse_every(every)
         self.keep = keep
+        self.store = store
         self._clock = clock
         self._last_write = clock()
         self.seq = int(ckpt.latest_step(ckpt_dir) or 0)
@@ -269,14 +332,20 @@ class RoundJournal:
             return False
         self.seq += 1
         stats.checkpoints += 1
+        if self.store is not None:
+            self.store.absorb_into(stats)
         meta = {"stage": stage, "index": int(index),
                 "run_key": self.run_key, "stats": stats.as_dict(), **extra}
         # phi / lb / sup fit in int32; the restore paths cast back
         arrays = {k: (np.asarray(v).astype(np.int32)
                       if np.asarray(v).dtype == np.int64 else np.asarray(v))
                   for k, v in arrays.items()}
-        ckpt.save(self.ckpt_dir, self.seq, arrays, metadata=meta,
-                  keep=self.keep)
+        account = getattr(self.store, "io_account", None)
+        with (account.hold(sum(int(a.nbytes) for a in arrays.values()),
+                           "checkpoint")
+              if account is not None else contextlib.nullcontext()):
+            ckpt.save(self.ckpt_dir, self.seq, arrays, metadata=meta,
+                      keep=self.keep)
         if self.mode == "time":
             self._last_write = self._clock()
         return True
@@ -314,18 +383,30 @@ class LowerBoundResult:
 def _partition_rounds(
     n: int, edges: np.ndarray, budget: int, part_fn, stats: OocStats, *,
     with_incidence: bool = True, start_ids: Optional[np.ndarray] = None,
-) -> Iterator[Tuple[int, plib.PartitionBatch, np.ndarray, int, None]]:
+    store: Optional[GraphStore] = None,
+) -> Iterator[Tuple[int, plib.PartitionBatch, np.ndarray, int,
+                    Optional[float]]]:
     """Producer side of the double-buffered round pipeline.
 
     Yields ``(round_idx, batch, cur_ids, cur_budget, zone_state)`` per
     partition round: ``cur_ids`` maps the batch's current-graph edge ids to
     original ids, ``cur_budget`` is the budget the round was built at (what
-    a resumed run restarts from), and ``zone_state`` is the locality
-    partitioner's state, None until that partitioner is ported (A8).  The
-    round's internal edges leave the working graph (``Graph.remove_edges``)
-    before the yield.  A round with no internal edge doubles the budget and
-    yields nothing.  The triangle list is enumerated once and filtered
-    against the surviving edges in later rounds.
+    a resumed run restarts from), and ``zone_state`` is the partitioner's
+    state after this round's feedback (:func:`_zone_state`; the consumer
+    journals one round late, when the producer has already observed the
+    next batch).  The round's internal edges leave the working graph
+    (``Graph.remove_edges``) before the yield.  A round with no internal
+    edge doubles the budget and yields nothing.  The triangle list is
+    enumerated once and filtered against the surviving edges in later
+    rounds.
+
+    With a ``store`` the working graph and the triangle list live in the
+    store between rounds: the successor graph is spilled BEFORE the
+    predecessor is released (its aliased chunk files must be registered
+    before the release drops the predecessor's references), the triangle
+    list is spilled after round 1 and then stream-filtered chunk by chunk
+    into a new key each round (a writer must not replace the key it is
+    reading), and the next round's arrays are prefetched before the yield.
 
     ``start_ids`` restarts from a working graph that is a subset of
     ``edges`` (resume and budget restarts); round numbering continues from
@@ -336,9 +417,14 @@ def _partition_rounds(
         cur_ids = np.arange(len(edges), dtype=np.int64)
     else:
         cur_ids = np.asarray(start_ids, dtype=np.int64)
-    g = glib.build_graph(n, edges[cur_ids])
+    g = glib.build_graph(n, edges[cur_ids], store=store)
+    if store is not None:
+        g.spill()
+        g.prefetch()
     cur_budget = budget
     tris_cur = None      # full triangle list of g, g-local edge ids
+    tris_key = None      # the store key of the spilled triangle list
+    observe = getattr(part_fn, "observe", None)
     while g.m:
         t0 = time.perf_counter()
         stats.rounds += 1
@@ -347,13 +433,24 @@ def _partition_rounds(
         parts = part_fn(g, cur_budget, stats.rounds)
         if not parts:
             break
-        if tris_cur is None:
+        spilled_round = tris_cur is None and tris_key is not None
+        if spilled_round:
+            stats.tri_rescans_avoided += 1
+            tris_in = sup_lib.iter_triangle_chunks(store, tris_key)
+        elif tris_cur is None:
             tris_cur = np.asarray(list_triangles(g), np.int64).reshape(-1, 3)
+            tris_in = tris_cur
         else:
             stats.tri_rescans_avoided += 1
-        batch = plib.build_partition_batch(g, parts, tris=tris_cur,
+            tris_in = tris_cur
+        batch = plib.build_partition_batch(g, parts, tris=tris_in,
                                            with_incidence=with_incidence)
+        if spilled_round:
+            stats.tri_reload_peak_rows = max(stats.tri_reload_peak_rows,
+                                             batch.tri_peak_rows)
         stats.absorb_batch(batch)
+        if observe is not None:
+            observe(batch)
         removed = np.zeros(g.m, dtype=bool)
         for bucket in batch.buckets:
             removed[bucket.edge_ids[bucket.internal]] = True
@@ -365,12 +462,37 @@ def _partition_rounds(
             continue
         ids_snapshot = cur_ids
         cur_ids = cur_ids[~removed]
-        g = g.remove_edges(removed)
+        g_prev, g = g, g.remove_edges(removed)
         remap = np.cumsum(~removed) - 1          # old id -> compacted id
-        if len(tris_cur):
+        if tris_cur is not None and len(tris_cur):
             tris_cur = remap[tris_cur[~removed[tris_cur].any(axis=1)]]
+        if store is not None:
+            g.spill()
+            g_prev.release()
+            if spilled_round:
+                new_key = store.graph_key() + "/tris"
+                with sup_lib.stream_spill_triangles(store, new_key) as w:
+                    for chunk in sup_lib.iter_triangle_chunks(store,
+                                                              tris_key):
+                        stats.tri_reload_peak_rows = max(
+                            stats.tri_reload_peak_rows, int(len(chunk)))
+                        w.append(remap[chunk[~removed[chunk].any(axis=1)]])
+                    spilled_rows = w.rows
+                store.release(tris_key)
+                tris_key = new_key
+            else:
+                if tris_key is None:
+                    tris_key = store.graph_key() + "/tris"
+                sup_lib.spill_triangles(store, tris_key, tris_cur)
+                spilled_rows = len(tris_cur)
+            stats.tri_spill_rows = max(stats.tri_spill_rows,
+                                       int(spilled_rows))
+            tris_cur = None
+            g.prefetch()
+            store.prefetch([tris_key])
         stats.round_build_s += time.perf_counter() - t0
-        yield stats.rounds, batch, ids_snapshot, cur_budget, None
+        yield (stats.rounds, batch, ids_snapshot, cur_budget,
+               _zone_state(part_fn))
 
 
 def _retry_stage1_round(eng: _Engine, stats: OocStats, shape_cache,
@@ -432,15 +554,17 @@ def lower_bounding(n: int, edges: np.ndarray, budget: int,
                    partitioner_seed: int = 0, kernel: str = "auto",
                    device=None, journal: Optional[RoundJournal] = None,
                    restored=None, max_retries: int = 2,
-                   engine_state: Optional[_Engine] = None
-                   ) -> LowerBoundResult:
+                   engine_state: Optional[_Engine] = None,
+                   store: Optional[GraphStore] = None) -> LowerBoundResult:
     """Algorithm 3: per-edge lower bounds plus the exact round-1 Phi_2.
 
     ``journal`` snapshots the fold state after each completed round ("lb"),
     ``restored`` (an ``(arrays, meta)`` pair from
-    :meth:`RoundJournal.load_latest`) resumes from one, and ``max_retries``
-    bounds the lane-split retries of a failed dispatch before the budget
-    halves (:func:`_retry_stage1_round`).
+    :meth:`RoundJournal.load_latest`) resumes from one, zone state
+    included, and ``max_retries`` bounds the lane-split retries of a failed
+    dispatch before the budget halves (:func:`_retry_stage1_round`).
+    ``store`` keeps the working graph in a graph store between rounds; its
+    counters land in ``OocStats``.
     """
     check_kernel(kernel)
     eng = engine_state if engine_state is not None else _Engine(
@@ -466,6 +590,7 @@ def lower_bounding(n: int, edges: np.ndarray, budget: int,
         stats = OocStats.from_dict(meta["stats"])
         stats.resumed_round = int(meta["index"])
         start_budget = int(meta.get("cur_budget", budget))
+        _restore_zone_state(part_fn, meta.get("zone_state"))
     shape_cache: set = set()
 
     def fold_bucket(round_idx, bucket, ids, phi_b):
@@ -518,7 +643,7 @@ def lower_bounding(n: int, edges: np.ndarray, budget: int,
         try:
             for round_idx, batch, ids, cur_b, zs in _partition_rounds(
                     n, edges, start_budget, part_fn, stats,
-                    start_ids=start_ids):
+                    start_ids=start_ids, store=store):
                 t0 = time.perf_counter()
                 try:
                     handles = []
@@ -553,6 +678,8 @@ def lower_bounding(n: int, edges: np.ndarray, budget: int,
             break
         except _RestartRounds as r:
             start_budget = r.budget
+    if store is not None:
+        store.absorb_into(stats)
     return LowerBoundResult(edges=edges, phi=phi, lb=lb, in_gnew=in_gnew,
                             stats=stats)
 
@@ -611,10 +738,13 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
     snapshot of this configuration and continues, to the phi of an
     uninterrupted run.  ``max_retries`` bounds the lane-split retries of a
     failed dispatch.  ``OocStats.retries / degraded / checkpoints /
-    resumed_round`` record all of it.  ``mesh`` and ``store`` raise
-    ``NotImplementedError`` (ROADMAP A13, A7).
+    resumed_round`` record all of it.  ``store`` (a ``core.store``
+    graph store) keeps stage 1's working graph and triangle list in the
+    store between rounds, with the store's counters in ``OocStats``; it
+    changes no result and is not part of the journal's run key.  ``mesh``
+    raises ``NotImplementedError`` (ROADMAP A13).
     """
-    reject_unported(mesh=mesh, store=store)
+    reject_unported(mesh=mesh)
     check_kernel(kernel)
     dev = resolve_device(device)
     edges = glib.canonical_edges(edges, n)
@@ -623,7 +753,7 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
         key = _run_key("bottom_up", n, edges, budget, partitioner,
                        partitioner_seed, devices=1)
         journal = RoundJournal(checkpoint_dir, key, every=checkpoint_every,
-                               keep=checkpoint_keep)
+                               keep=checkpoint_keep, store=store)
         if resume:
             snap = journal.load_latest()
 
@@ -642,7 +772,7 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
             n, edges, budget, partitioner, partitioner_seed=partitioner_seed,
             journal=journal, max_retries=max_retries, engine_state=eng,
             restored=snap if snap is not None
-            and snap[1]["stage"] == "lb" else None)
+            and snap[1]["stage"] == "lb" else None, store=store)
         phi = lbres.phi.copy()
         lb = lbres.lb
         remaining = lbres.in_gnew.copy()
@@ -740,6 +870,8 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
         k += 1
 
     kmax = int(phi.max()) if len(phi) else 2
+    if store is not None:
+        store.absorb_into(stats)
     return BottomUpResult(edges=edges, phi=phi, kmax=kmax,
                           rounds=stats.rounds, scans=stats.scans,
                           candidate_sizes=cand_sizes, stats=stats)
@@ -826,10 +958,11 @@ def partitioned_support(n: int, edges: np.ndarray, budget: int,
     ``restored`` snapshot and resume the credit state after each completed
     round ("sup" snapshots).  A failed round (the ``"support"`` fault site)
     walks :func:`_retry_support_round`; a round's triples all exist before
-    any is folded.  ``engine="perpart"``, ``mesh`` and ``store`` raise
-    ``NotImplementedError`` (ROADMAP A12, A13, A7).
+    any is folded.  ``store`` keeps the working graph in a graph store
+    between rounds.  ``engine="perpart"`` and ``mesh`` raise
+    ``NotImplementedError`` (ROADMAP A12, A13).
     """
-    reject_unported(mesh=mesh, store=store)
+    reject_unported(mesh=mesh)
     if engine == "perpart":
         raise NotImplementedError(
             "engine='perpart' is not ported to repro_torch yet: ROADMAP A12 "
@@ -850,6 +983,7 @@ def partitioned_support(n: int, edges: np.ndarray, budget: int,
         stats = OocStats.from_dict(meta["stats"])
         stats.resumed_round = int(meta["index"])
         cur_budget = int(meta.get("cur_budget", budget))
+        _restore_zone_state(part_fn, meta.get("zone_state"))
 
     eng = _Engine()
     while True:
@@ -859,7 +993,7 @@ def partitioned_support(n: int, edges: np.ndarray, budget: int,
         try:
             for round_idx, batch, ids, cur_b, zs in _partition_rounds(
                     n, edges, cur_budget, part_fn, stats,
-                    with_incidence=False, start_ids=start_ids):
+                    with_incidence=False, start_ids=start_ids, store=store):
                 try:
                     trips = [
                         _support_credit_triples(bucket, round_idx, bi, 0, 0)
@@ -880,4 +1014,6 @@ def partitioned_support(n: int, edges: np.ndarray, budget: int,
             break
         except _RestartRounds as r:
             cur_budget = r.budget
+    if store is not None:
+        store.absorb_into(stats)
     return (sup, stats) if with_stats else sup

@@ -13,9 +13,11 @@ Port of ``repro.core.faults``.  The injection sites are named once —
 * ``"support"``       — entry of a triangle-credit computation in
   ``partitioned_support`` (per bucket, before any credit is folded into the
   global ``sup``: the credits are not idempotent);
-* ``"chunk-read"``, ``"chunk-write"`` and ``"maintain"`` — the graph store's
-  chunk I/O and the maintenance steps, which have no hook in this port yet
-  (ROADMAP A7, A11); the names are kept so plans stay portable.
+* ``"chunk-read"`` / ``"chunk-write"`` — the graph store's chunk I/O in
+  ``core.store.ChunkedDiskStore`` (context ``key``, ``chunk``, ``path``),
+  before a chunk file is read or committed;
+* ``"maintain"`` — the maintenance steps, which have no hook in this port
+  yet (ROADMAP A11); the name is kept so plans stay portable.
 
 — and a test describes failures declaratively as a :class:`FaultPlan`:
 *at the 2nd stage-1 dispatch of round 3, raise a device OOM, twice*.  Rules

@@ -1,6 +1,6 @@
 """Graph representation for truss decomposition (host numpy).
 
-The port's copy of ``repro.core.graph``, in memory only (no graph store):
+The port's copy of ``repro.core.graph``:
 
 * canonical edge list ``edges`` — (m, 2) int32, ``u < v``, lex-sorted,
   deduplicated, self-loop free; the row index of an edge is its edge id;
@@ -8,13 +8,14 @@ The port's copy of ``repro.core.graph``, in memory only (no graph store):
   oriented from its lower-rank endpoint, so out-degrees are O(sqrt(m)) and
   wedge enumeration costs O(m^1.5) in total;
 * CSR of the oriented out-neighbourhoods with rows sorted by neighbour id,
-  so membership tests are binary searches.
+  so membership tests are binary searches;
+* optionally, the arrays kept in a graph store (``core.store``) and
+  reloaded on access, so the out-of-core rounds need not hold them.
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -55,7 +56,6 @@ def degrees(n: int, edges: np.ndarray) -> np.ndarray:
     return deg
 
 
-@dataclasses.dataclass
 class Graph:
     """Static-shape packed graph (numpy arrays, moved to a device by the
     functions that need them).
@@ -66,30 +66,158 @@ class Graph:
     pointers; nbrs: (m,) out-neighbours, each row sorted by vertex id;
     nbr_eid: (m,) edge id of each CSR entry; max_out_deg: largest oriented
     out-degree.
+
+    With a graph store attached (``store=``, ``repro_torch.core.store``)
+    the arrays are views through the store: :meth:`spill` moves them out
+    and each attribute access reloads lazily with ``store.get``.  With
+    ``store=None`` they are plain resident arrays and every store method
+    is a no-op.
     """
 
-    n: int
-    edges: np.ndarray
-    deg: np.ndarray
-    rank: np.ndarray
-    src: np.ndarray
-    dst: np.ndarray
-    indptr: np.ndarray
-    nbrs: np.ndarray
-    nbr_eid: np.ndarray
-    max_out_deg: int
+    # the spillable payload, in spill order (n and max_out_deg stay)
+    _ARRAYS = ("edges", "deg", "rank", "src", "dst", "indptr", "nbrs",
+               "nbr_eid")
+
+    def __init__(self, *, n: int, edges: np.ndarray, deg: np.ndarray,
+                 rank: np.ndarray, src: np.ndarray, dst: np.ndarray,
+                 indptr: np.ndarray, nbrs: np.ndarray, nbr_eid: np.ndarray,
+                 max_out_deg: int, store=None,
+                 spill_plan: Optional[Dict[str, Tuple]] = None):
+        self.n = int(n)
+        self.max_out_deg = int(max_out_deg)
+        self._m = len(edges)
+        self._store = store
+        self._key: Optional[str] = None
+        self._spill_plan = spill_plan
+        self._spilled: set = set()
+        self._arrays: Dict[str, np.ndarray] = {
+            "edges": edges, "deg": deg, "rank": rank, "src": src,
+            "dst": dst, "indptr": indptr, "nbrs": nbrs, "nbr_eid": nbr_eid,
+        }
+
+    def _fetch(self, name: str) -> np.ndarray:
+        arr = self._arrays.get(name)
+        if arr is None:
+            if self._store is None or self._key is None:
+                raise RuntimeError(
+                    f"graph array {name!r} was dropped without a store to "
+                    f"reload it from")
+            arr = self._store.get(f"{self._key}/{name}")
+            self._arrays[name] = arr
+        return arr
+
+    @property
+    def edges(self) -> np.ndarray:
+        return self._fetch("edges")
+
+    @property
+    def deg(self) -> np.ndarray:
+        return self._fetch("deg")
+
+    @property
+    def rank(self) -> np.ndarray:
+        return self._fetch("rank")
+
+    @property
+    def src(self) -> np.ndarray:
+        return self._fetch("src")
+
+    @property
+    def dst(self) -> np.ndarray:
+        return self._fetch("dst")
+
+    @property
+    def indptr(self) -> np.ndarray:
+        return self._fetch("indptr")
+
+    @property
+    def nbrs(self) -> np.ndarray:
+        return self._fetch("nbrs")
+
+    @property
+    def nbr_eid(self) -> np.ndarray:
+        return self._fetch("nbr_eid")
 
     @property
     def m(self) -> int:
-        return len(self.edges)
+        return self._m
 
-    def remove_edges(self, remove_mask: np.ndarray) -> "Graph":
+    @property
+    def store(self):
+        return self._store
+
+    # -- spill lifecycle (no-ops without a store) ----------------------------
+    def spill(self) -> None:
+        """Move the arrays into the store and drop the host references.
+
+        A graph made by :meth:`remove_edges` carries a spill plan: filtered
+        arrays go through ``store.put_filtered`` (source chunks whose rows
+        are all kept are aliased, not rewritten) and the reused ``rank``
+        through ``store.alias`` (no write).  An array spilled once is never
+        rewritten; a reloaded copy is just dropped.
+        """
+        if self._store is None:
+            return
+        if self._key is None:
+            self._key = self._store.graph_key()
+        plan = self._spill_plan or {}
+        for name in self._ARRAYS:
+            if name in self._spilled:
+                continue
+            arr = self._arrays.get(name)
+            if arr is None:
+                continue
+            dst_key = f"{self._key}/{name}"
+            step = plan.get(name)
+            if step is None:
+                self._store.put(dst_key, arr)
+            elif step[0] == "alias":
+                self._store.alias(dst_key, step[1], arr)
+            else:  # ("filter", src_key, keep_mask)
+                self._store.put_filtered(dst_key, step[1], step[2], arr)
+            self._spilled.add(name)
+        self._spill_plan = None
+        self._arrays = {}
+
+    def prefetch(self, names: Optional[Sequence[str]] = None) -> None:
+        """Ask the store to warm this graph's arrays for the next round."""
+        if self._store is None or self._key is None:
+            return
+        self._store.prefetch([f"{self._key}/{nm}"
+                              for nm in (names or self._ARRAYS)
+                              if nm in self._spilled])
+
+    def unload(self) -> None:
+        """Drop the reloaded host copies of spilled arrays."""
+        if self._store is None:
+            return
+        for name in list(self._arrays):
+            if name in self._spilled:
+                del self._arrays[name]
+
+    def release(self) -> None:
+        """Drop this graph's keys from the store (refcounted: chunk files
+        aliased by a successor graph survive)."""
+        if self._store is not None and self._key is not None:
+            self._store.release(self._key)
+        self._arrays = {}
+        self._spilled = set()
+        self._key = None
+
+    def remove_edges(self, remove_mask: np.ndarray, *,
+                     detach: bool = False) -> "Graph":
         """Drop the masked edges without a rebuild.
 
         ``rank`` is reused (it stays a total order, so every surviving
         edge keeps its orientation) and CSR rows are filtered in place
         (each row stays sorted).  O(n + m), no sort.  Old edge id ``i``
         maps to ``cumsum(keep)[i] - 1``.
+
+        A store-backed graph hands its successor a spill plan (which mask
+        filters which array, and the ``rank`` alias), so the successor's
+        :meth:`spill` rewrites only the chunks the filter touched.
+        ``detach=True`` gives a plain in-memory graph instead (a transient
+        graph that must not take store keys).
         """
         remove_mask = np.asarray(remove_mask, dtype=bool)
         if remove_mask.shape != (self.m,):
@@ -110,17 +238,30 @@ class Graph:
             np.add.at(counts, rows[keep_entry] + 1, 1)
         indptr = np.cumsum(counts).astype(Int)
         out_deg = indptr[1:] - indptr[:-1]
+        store = None if detach else self._store
+        plan = None
+        if store is not None and self._key is not None:
+            # deg, indptr and nbr_eid are recomputed: plain puts
+            plan = {
+                "edges": ("filter", f"{self._key}/edges", keep),
+                "src": ("filter", f"{self._key}/src", keep),
+                "dst": ("filter", f"{self._key}/dst", keep),
+                "nbrs": ("filter", f"{self._key}/nbrs", keep_entry),
+                "rank": ("alias", f"{self._key}/rank"),
+            }
         return Graph(
             n=self.n, edges=new_edges, deg=deg, rank=self.rank,
             src=self.src[keep], dst=self.dst[keep], indptr=indptr,
             nbrs=self.nbrs[keep_entry],
             nbr_eid=new_id[self.nbr_eid[keep_entry]].astype(Int),
             max_out_deg=int(out_deg.max()) if self.n and len(new_edges) else 0,
+            store=store, spill_plan=plan,
         )
 
 
-def build_graph(n: int, edges: np.ndarray) -> Graph:
-    """Build the oriented CSR package from an edge list."""
+def build_graph(n: int, edges: np.ndarray, store=None) -> Graph:
+    """Build the oriented CSR package from an edge list; ``store`` attaches
+    a graph store (the graph stays resident until its first spill)."""
     edges = canonical_edges(edges, n)
     m = len(edges)
     deg = degrees(n, edges)
@@ -132,7 +273,7 @@ def build_graph(n: int, edges: np.ndarray) -> Graph:
             n=n, edges=edges, deg=deg, rank=rank,
             src=np.zeros(0, Int), dst=np.zeros(0, Int),
             indptr=np.zeros(n + 1, Int), nbrs=np.zeros(0, Int),
-            nbr_eid=np.zeros(0, Int), max_out_deg=0,
+            nbr_eid=np.zeros(0, Int), max_out_deg=0, store=store,
         )
     u, v = edges[:, 0], edges[:, 1]
     u_first = rank[u] < rank[v]
@@ -149,7 +290,7 @@ def build_graph(n: int, edges: np.ndarray) -> Graph:
     return Graph(
         n=n, edges=edges, deg=deg, rank=rank, src=src, dst=dst,
         indptr=indptr, nbrs=nbrs, nbr_eid=nbr_eid,
-        max_out_deg=int(out_deg.max()) if n else 0,
+        max_out_deg=int(out_deg.max()) if n else 0, store=store,
     )
 
 
@@ -164,6 +305,22 @@ def edge_id_lookup(graph: Graph, a: np.ndarray, b: np.ndarray) -> np.ndarray:
         return np.full(key.shape, -1, Int)
     pos = np.clip(np.searchsorted(ekey, key), 0, len(ekey) - 1)
     return np.where(ekey[pos] == key, pos, -1).astype(Int)
+
+
+def undirected_csr(graph: Graph) -> tuple[np.ndarray, np.ndarray]:
+    """CSR of the undirected adjacency, ``(indptr, nbrs)``: each edge gives
+    two entries (the locality partitioner's growth needs both directions).
+    One stable argsort on the row; the order within a row is unspecified."""
+    n, m = graph.n, graph.m
+    if m == 0:
+        return np.zeros(n + 1, Int), np.zeros(0, Int)
+    e = graph.edges
+    rows = np.concatenate([e[:, 0], e[:, 1]])
+    cols = np.concatenate([e[:, 1], e[:, 0]])
+    cols = cols[np.argsort(rows, kind="stable")]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    indptr[1:] = np.cumsum(np.bincount(rows, minlength=n))
+    return indptr, cols.astype(Int)
 
 
 def wedge_weight(deg_a: np.ndarray, deg_b: np.ndarray) -> np.ndarray:

@@ -7,9 +7,11 @@ fit a working-set budget, counted in edge entries:
 * ``sequential_partition`` — contiguous vertex-id blocks whose summed NS
   cost (incident degrees) stays under the budget;
 * ``random_partition`` — vertices hashed into ceil(total / budget) parts,
-  with each overflowing part's excess repacked cost-bounded.
-
-(The locality-aware partitioner is not ported yet.)
+  with each overflowing part's excess repacked cost-bounded;
+* ``locality_partition`` — triangle-aware growth over the undirected
+  adjacency: parts grow from the vertices of largest estimated triangle
+  volume and admit neighbours by closed-wedge gain, covering one zone of
+  the graph per round, so that a part holds its own triangles.
 
 :func:`build_partition_batch` turns one round's parts into the device form:
 every NS(P) extracted in one sweep and compacted to local edge ids, parts
@@ -26,7 +28,9 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.graph import Graph, closed_wedge_estimate, compact_index
+from repro_torch.core.graph import (Graph, closed_wedge_estimate,
+                                    compact_index, undirected_csr,
+                                    wedge_weight)
 from repro_torch.core.support import (_pow2_ceil, _pow4_ceil, list_triangles,
                                       support_from_triangle_list,
                                       triangle_incidence_np)
@@ -99,6 +103,41 @@ def _first_fit_decreasing(sizes: Sequence[int],
     return bins
 
 
+def _first_fit_decreasing_2d(costs: Sequence[int], tris: Sequence[int],
+                             cap_cost: int, cap_tri: int) -> List[List[int]]:
+    """First-fit-decreasing on cost with a soft triangle dimension.
+
+    Cost is the hard constraint and keeps the classic order and bound: a
+    bin opens only when the cost fits nowhere.  Among the bins where the
+    cost fits, an item goes to the first where its triangles fit too, else
+    to the one with the most triangle room, so triangle-dense fragments
+    spread across bins.
+    """
+    order = sorted(range(len(costs)), key=lambda i: (-costs[i], -tris[i]))
+    bins: List[List[int]] = []
+    room_c: List[int] = []
+    room_t: List[int] = []
+    for i in order:
+        placed = -1
+        for j in range(len(bins)):
+            if room_c[j] >= costs[i] and room_t[j] >= tris[i]:
+                placed = j
+                break
+        if placed < 0:
+            feasible = [j for j in range(len(bins)) if room_c[j] >= costs[i]]
+            if feasible:
+                placed = max(feasible, key=lambda j: room_t[j])
+        if placed < 0:
+            bins.append([i])
+            room_c.append(cap_cost - costs[i])
+            room_t.append(cap_tri - tris[i])
+        else:
+            bins[placed].append(i)
+            room_c[placed] -= costs[i]
+            room_t[placed] -= tris[i]
+    return bins
+
+
 def sequential_partition(g: Graph, budget: int) -> List[np.ndarray]:
     """Contiguous vertex blocks with estimated NS size <= budget each."""
     cost = _ns_cost(g)
@@ -140,9 +179,142 @@ def random_partition(g: Graph, budget: int, seed: int = 0) -> List[np.ndarray]:
     return parts
 
 
+# Zone of one locality round: parts grow until the covered NS cost reaches
+# max(zone_mult * budget, total_cost / _ZONE_FRACTION).  The multiple
+# follows the previous round's observed capture (``_zone_mult``):
+# _ZONE_BUDGET_MULT on the first round, then within [_ZONE_MULT_MIN,
+# _ZONE_MULT_MAX].
+_ZONE_BUDGET_MULT = 4
+_ZONE_FRACTION = 16
+_ZONE_MULT_MIN = 2.0
+_ZONE_MULT_MAX = 16.0
+
+
+def _zone_mult(prev_locality: float | None) -> float:
+    """Zone multiple from the previous round's ``tri_locality``: linear in
+    the captured fraction between _ZONE_MULT_MIN and _ZONE_MULT_MAX (a high
+    capture widens the zone, a low one shrinks it toward the budget), and
+    _ZONE_BUDGET_MULT before any observation."""
+    if prev_locality is None:
+        return float(_ZONE_BUDGET_MULT)
+    frac = min(1.0, max(0.0, float(prev_locality)))
+    return _ZONE_MULT_MIN + (_ZONE_MULT_MAX - _ZONE_MULT_MIN) * frac
+
+
+def locality_partition(
+    g: Graph, budget: int, prev_locality: float | None = None,
+) -> List[np.ndarray]:
+    """Triangle-aware zoned growth over the adjacency.
+
+    One call covers a zone of the working graph, up to
+    ``max(_zone_mult(prev_locality) * budget, total_cost / 16)`` of NS
+    cost, and leaves the rest to later rounds (the round loop repeats until
+    no edge is left, so a partial cover is sound).  Each part grows from
+    the unassigned vertex of largest estimated triangle volume
+    (``closed_wedge_estimate``, NS cost breaking ties) and keeps a pool of
+    the unassigned neighbours of the part so far.  When ``v`` joins, each
+    neighbour ``u`` gains ``wedge_weight(deg u, deg v)``; candidates are
+    ranked by that gain, then by edges into the part, then by cheap
+    marginal cost ``deg(u) - edges_into_part(u)``, and the longest ranked
+    prefix that fits the budget is admitted (a candidate whose marginal
+    cost alone exceeds the room is skipped).  The grown fragments are then
+    merged first-fit over (NS cost, triangle estimate)
+    (:func:`_first_fit_decreasing_2d`, triangle capacity
+    ``total_tri * budget / total_cost``).
+    """
+    cost = _ns_cost(g)
+    active = np.nonzero(cost > 0)[0]
+    if len(active) == 0:
+        return []
+    _warn_over_budget(cost, active, budget)
+    indptr, nbrs = undirected_csr(g)
+    indptr = np.asarray(indptr, dtype=np.int64)
+    nbrs64 = np.asarray(nbrs, dtype=np.int64)
+    deg = g.deg.astype(np.int64)
+    tri_est = closed_wedge_estimate(g)
+    unassigned = cost > 0
+    zone_cost = max(int(_zone_mult(prev_locality) * budget),
+                    int(cost[active].sum()) // _ZONE_FRACTION)
+    seed_order = active[np.lexsort((-cost[active], -tri_est[active]))]
+    seed_pos = 0
+    # per-part candidate scores, trusted only where stamp == part id
+    gain = np.zeros(g.n, dtype=np.int64)      # closed-wedge gain
+    ecnt = np.zeros(g.n, dtype=np.int64)      # edges into the part
+    stamp = np.full(g.n, -1, dtype=np.int64)
+    parts: List[np.ndarray] = []
+    part_cost: List[int] = []                 # |NS| charged per fragment
+    part_tri: List[int] = []
+    covered = 0
+    while covered < zone_cost:
+        while (seed_pos < len(seed_order)
+               and not unassigned[seed_order[seed_pos]]):
+            seed_pos += 1
+        if seed_pos >= len(seed_order):
+            break
+        s = int(seed_order[seed_pos])
+        part_id = len(parts)
+        unassigned[s] = False
+        acc = int(cost[s])
+        chunks = [np.array([s], dtype=np.int64)]
+        newly = chunks[0]
+        pool = np.zeros(0, dtype=np.int64)
+        while acc < budget:
+            # score the unassigned neighbours of the vertices just admitted
+            starts = indptr[newly]
+            cnt = indptr[newly + 1] - starts
+            tot = int(cnt.sum())
+            if tot:
+                flat = np.repeat(starts - (np.cumsum(cnt) - cnt), cnt) \
+                    + np.arange(tot)
+                cand = nbrs64[flat]
+                src = np.repeat(newly, cnt)
+                keep = unassigned[cand]
+                cand, src = cand[keep], src[keep]
+            else:
+                cand = src = np.zeros(0, dtype=np.int64)
+            if len(cand):
+                uniq = np.unique(cand)
+                stale = stamp[uniq] != part_id
+                gain[uniq[stale]] = 0
+                ecnt[uniq[stale]] = 0
+                stamp[uniq] = part_id
+                np.add.at(gain, cand, wedge_weight(deg[cand], deg[src]))
+                np.add.at(ecnt, cand, 1)
+                pool = np.unique(np.concatenate([pool, uniq]))
+            pool = pool[unassigned[pool]]
+            if len(pool) == 0:
+                break
+            mc = np.maximum(cost[pool] - ecnt[pool], 0)
+            order = np.lexsort((mc, -ecnt[pool], -gain[pool]))
+            ranked = pool[order]
+            mcr = mc[order]
+            fit1 = mcr <= budget - acc
+            ranked, mcr = ranked[fit1], mcr[fit1]
+            fits = acc + np.cumsum(mcr) <= budget
+            take = ranked[fits]
+            if len(take) == 0:
+                break
+            unassigned[take] = False
+            acc += int(mcr[fits].sum())
+            chunks.append(take)
+            newly = take
+        P = np.concatenate(chunks)
+        parts.append(P.astype(np.int32))
+        part_cost.append(acc)
+        part_tri.append(int(tri_est[P].sum()))
+        covered += acc
+    if len(parts) > 1:
+        total_c = sum(part_cost)
+        cap_tri = max(1, -(-sum(part_tri) * budget // max(total_c, 1)))
+        bins = _first_fit_decreasing_2d(part_cost, part_tri, budget, cap_tri)
+        parts = [np.concatenate([parts[i] for i in b]) for b in bins]
+    return parts
+
+
 PARTITIONERS = {
     "sequential": sequential_partition,
     "random": random_partition,
+    "locality": locality_partition,
 }
 
 
@@ -227,6 +399,9 @@ class PartitionBatch:
     tri_total: int = 0    # triangles enumerated on the working graph
     tri_assigned: int = 0  # of those, captured by some part
     tri_est: int = 0      # wedge-based triangle estimate of the graph
+    tri_peak_rows: int = 0  # most triangle rows held at once while building:
+    #                         the whole list when ``tris`` is an array; the
+    #                         kept rows plus one chunk when it streams
 
     @property
     def tri_locality(self) -> float:
@@ -294,7 +469,7 @@ def build_partition_batch(
     with_incidence: bool = True,
     pad_lanes_pow2: bool = True,
     lane_capacity: int | None = None,
-    tris: np.ndarray | None = None,
+    tris=None,
 ) -> PartitionBatch:
     """Extract, compact, pack and pad every NS(P) of one round.
 
@@ -306,7 +481,11 @@ def build_partition_batch(
     ``lane_capacity`` forces every part into one class of that capacity.
     ``with_incidence=False`` skips the per-lane supports and incidence CSR.
     ``tris`` passes a precomputed (T, 3) triangle list of the full graph
-    ``g`` (the incremental round pipeline), which replaces the enumeration.
+    ``g`` (the incremental round pipeline), which replaces the enumeration,
+    or an iterable of (rows, 3) chunks of such a list (a list spilled to a
+    graph store): each chunk is scoped, routed and cut to its assigned rows
+    before the next is read, so the whole list is never held; the peak is
+    ``PartitionBatch.tri_peak_rows``.
     """
     if lane_capacity is not None and lane_capacity <= 0:
         raise ValueError(
@@ -318,18 +497,49 @@ def build_partition_batch(
     e64 = g.edges.astype(np.int64)
     in_ns = (part_of[e64[:, 0]] >= 0) | (part_of[e64[:, 1]] >= 0)
     full_scope = bool(in_ns.all())
-    g_scan = g if full_scope else g.remove_edges(~in_ns)
-    if tris is not None:
-        tris_g = np.asarray(tris, np.int64).reshape(-1, 3)
-        if not full_scope and len(tris_g):
-            tris_g = tris_g[in_ns[tris_g].all(axis=1)]
+    # detached: the scoped scan graph lives for this build only and takes
+    # no store keys
+    g_scan = g if full_scope else g.remove_edges(~in_ns, detach=True)
+    if tris is not None and not isinstance(tris, np.ndarray):
+        # chunk-streamed: unassigned (three-part) rows are dropped here,
+        # where the array path sorts them ahead of part 0; no part's slice
+        # reads them either way
+        kept_t: List[np.ndarray] = []
+        kept_p: List[np.ndarray] = []
+        tri_total = tri_assigned = kept_rows = tri_peak_rows = 0
+        for chunk in tris:
+            tc = np.asarray(chunk, np.int64).reshape(-1, 3)
+            tri_peak_rows = max(tri_peak_rows, kept_rows + int(len(tc)))
+            if not full_scope and len(tc):
+                tc = tc[in_ns[tc].all(axis=1)]
+            tri_total += int(len(tc))
+            tp = assign_triangles(g, tc, part_of)
+            keep = tp >= 0
+            tc, tp = tc[keep], tp[keep]
+            tri_assigned += int(len(tc))
+            kept_rows += int(len(tc))
+            if len(tc):
+                kept_t.append(tc)
+                kept_p.append(tp)
+        tri_peak_rows = max(tri_peak_rows, kept_rows)
+        tris_g = (np.concatenate(kept_t) if kept_t
+                  else np.zeros((0, 3), np.int64))
+        tri_part = (np.concatenate(kept_p) if kept_p
+                    else np.zeros(0, np.int64))
     else:
-        tris_g = np.asarray(list_triangles(g_scan), np.int64).reshape(-1, 3)
-        if not full_scope and len(tris_g):
-            tris_g = np.nonzero(in_ns)[0][tris_g]   # back to g's edge ids
-    tri_part = assign_triangles(g, tris_g, part_of)
-    tri_total = int(len(tris_g))
-    tri_assigned = int((tri_part >= 0).sum())
+        if tris is not None:
+            tris_g = np.asarray(tris, np.int64).reshape(-1, 3)
+            if not full_scope and len(tris_g):
+                tris_g = tris_g[in_ns[tris_g].all(axis=1)]
+        else:
+            tris_g = np.asarray(list_triangles(g_scan),
+                                np.int64).reshape(-1, 3)
+            if not full_scope and len(tris_g):
+                tris_g = np.nonzero(in_ns)[0][tris_g]  # back to g's ids
+        tri_part = assign_triangles(g, tris_g, part_of)
+        tri_total = int(len(tris_g))
+        tri_assigned = int((tri_part >= 0).sum())
+        tri_peak_rows = tri_total
     tri_est = int(closed_wedge_estimate(g_scan).sum()) // 3
     order = np.argsort(tri_part, kind="stable")
     tris_sorted = tris_g[order]
@@ -348,7 +558,7 @@ def build_partition_batch(
         return PartitionBatch(buckets=[], n_parts=0, real_edges=0,
                               padded_slots=0, max_part_edges=0,
                               tri_total=tri_total, tri_assigned=tri_assigned,
-                              tri_est=tri_est)
+                              tri_est=tri_est, tri_peak_rows=tri_peak_rows)
 
     groups: dict[int, List[int]] = {}
     for idx, item in enumerate(per_part):
@@ -414,4 +624,5 @@ def build_partition_batch(
         buckets=buckets, n_parts=len(per_part), real_edges=total_real,
         padded_slots=total_pad, max_part_edges=max_part,
         tri_total=tri_total, tri_assigned=tri_assigned, tri_est=tri_est,
+        tri_peak_rows=tri_peak_rows,
     )

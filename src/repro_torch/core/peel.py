@@ -30,7 +30,9 @@ device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import tempfile
 import warnings
 from typing import Optional
 
@@ -58,8 +60,6 @@ from repro_torch.kernels.frontier_peel.ref import BIG
 _NOT_PORTED = {
     "mesh": "A13 (distributed mesh paths)",
     "mesh_axes": "A13 (distributed mesh paths)",
-    "store": "A7 (graph store)",
-    "host_memory_budget": "A7 (graph store)",
     "edits": "A11 (incremental maintenance)",
     "phi0": "A11 (incremental maintenance)",
 }
@@ -580,8 +580,8 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
     "frontier" / "dense" force an in-memory engine; "bottom-up" /
     "top-down" force an out-of-core engine, with a per-part budget of
     ``memory_budget`` working-set entries (default m // 8) and
-    ``partitioner`` "sequential" or "random" (reseeded per round from
-    ``partitioner_seed``).
+    ``partitioner`` "sequential", "random" (reseeded per round from
+    ``partitioner_seed``) or the triangle-aware "locality".
 
     ``checkpoint_dir`` journals the out-of-core engines' rounds and levels
     every ``checkpoint_every`` events (an int, or a duration such as
@@ -591,6 +591,14 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
     smaller rounds.  The in-memory engines run one peel and have nothing to
     journal: a ``checkpoint_dir`` routed to them warns and is ignored.
 
+    ``store`` (a graph store of ``core.store``) keeps the out-of-core
+    engines' working graph and triangle list off the host between rounds;
+    ``host_memory_budget=`` (bytes, positive) alone builds a
+    ``ChunkedDiskStore`` capped at that many bytes in a fresh temporary
+    directory, which is closed and removed when the call returns.  Both
+    change no result, add the store's counters to ``OocStats``, and warn
+    and are ignored on the in-memory route.
+
     ``kernel``: "auto" only — the fused round kernel on CUDA, its plain
     version on the CPU (out-of-core engines; the in-memory engines have
     none).  ``device``: None means the CUDA card (raises without CUDA);
@@ -599,15 +607,17 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
     ``OocStats`` (out-of-core).  The remaining arguments of the JAX entry
     point are not ported yet and raise ``NotImplementedError`` when set.
     """
-    reject_unported(mesh=mesh, mesh_axes=mesh_axes, store=store,
-                    host_memory_budget=host_memory_budget, edits=edits,
-                    phi0=phi0)
+    reject_unported(mesh=mesh, mesh_axes=mesh_axes, edits=edits, phi0=phi0)
     check_kernel(kernel)
     dev = resolve_device(device)
     if memory_budget is not None and memory_budget <= 0:
         raise ValueError(
             f"memory_budget must be a positive number of working-set "
             f"entries, got {memory_budget!r}")
+    if host_memory_budget is not None and host_memory_budget <= 0:
+        raise ValueError(
+            f"host_memory_budget must be a positive byte count, got "
+            f"{host_memory_budget!r}")
     g = build_graph(n, edges)
     if g.m == 0:
         phi = np.zeros(0, np.int64)
@@ -624,14 +634,23 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
             part_budget = max(64, (2 * g.m * memory_budget) // max(est, 1))
         else:
             part_budget = max(64, g.m // 8)
-        ooc = dict(partitioner=partitioner, partitioner_seed=partitioner_seed,
-                   kernel=kernel, device=dev, checkpoint_dir=checkpoint_dir,
-                   checkpoint_every=checkpoint_every, resume=resume,
-                   max_retries=max_retries)
-        if engine == "bottom-up":
-            res = bottom_up_decompose(n, edges, part_budget, **ooc)
-        else:
-            res = top_down_decompose(n, edges, budget=part_budget, **ooc)
+        with contextlib.ExitStack() as own:
+            if store is None and host_memory_budget is not None:
+                from repro_torch.core.store import ChunkedDiskStore
+
+                tmp = own.enter_context(tempfile.TemporaryDirectory(
+                    prefix="truss-store-"))
+                store = own.enter_context(ChunkedDiskStore(
+                    tmp, host_memory_budget=host_memory_budget))
+            ooc = dict(partitioner=partitioner,
+                       partitioner_seed=partitioner_seed, kernel=kernel,
+                       device=dev, checkpoint_dir=checkpoint_dir,
+                       checkpoint_every=checkpoint_every, resume=resume,
+                       max_retries=max_retries, store=store)
+            if engine == "bottom-up":
+                res = bottom_up_decompose(n, edges, part_budget, **ooc)
+            else:
+                res = top_down_decompose(n, edges, budget=part_budget, **ooc)
         phi = np.asarray(res.phi).astype(np.int64)
         return (phi, res.stats) if with_stats else phi
     if checkpoint_dir is not None:
@@ -639,6 +658,13 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
             "checkpoint_dir is ignored by the in-memory engines (one peel, "
             "nothing to journal); pass a memory_budget that routes to an "
             "out-of-core engine, or engine='bottom-up'/'top-down'",
+            stacklevel=2)
+    if store is not None or host_memory_budget is not None:
+        warnings.warn(
+            "store=/host_memory_budget= are ignored by the in-memory "
+            "engines (the whole graph is resident by construction); pass a "
+            "memory_budget that routes to an out-of-core engine, or "
+            "engine='bottom-up'/'top-down'",
             stacklevel=2)
     # the skew-aware listing: the same triangles as the reference's
     # list_triangles_np in another row order, which changes neither phi

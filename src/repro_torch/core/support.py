@@ -17,7 +17,8 @@ found exactly once, crediting all three edge ids.
   (``kernels.triangle_count``), sparse graphs to the wedge scan.
 
 ``triangle_incidence_np`` builds the edge -> triangle incidence CSR of the
-frontier peel engine (``core.peel``).
+frontier peel engine (``core.peel``); ``spill_triangles`` and its siblings
+keep a triangle list in a graph store (``core.store``).
 """
 
 from __future__ import annotations
@@ -300,3 +301,32 @@ def edge_support_auto(g: Graph, *, dense_threshold: float = 0.125,
         compact = relabel[g.edges.astype(np.int64)]
         return dense_edge_support(n_act, compact, device=dev)
     return edge_support(g, device=dev).cpu().numpy().astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# triangle lists in a graph store: the out-of-core rounds keep the
+# incremental triangle list off the host between rounds
+# ---------------------------------------------------------------------------
+
+def spill_triangles(store, key: str, tris: np.ndarray) -> None:
+    """Put a round's triangle list (edge-id triples) under ``key`` as
+    (T, 3) int64, replacing what the key held."""
+    store.put(key, np.ascontiguousarray(tris, dtype=np.int64).reshape(-1, 3))
+
+
+def load_triangles(store, key: str) -> np.ndarray:
+    """A list put by :func:`spill_triangles`, whole."""
+    return np.asarray(store.get(key), dtype=np.int64).reshape(-1, 3)
+
+
+def iter_triangle_chunks(store, key: str):
+    """A spilled list as (rows, 3) int64 blocks of the store's chunk size,
+    so a consumer holds one chunk at a time instead of the list."""
+    for part in store.get_chunks(key):
+        yield np.asarray(part, dtype=np.int64).reshape(-1, 3)
+
+
+def stream_spill_triangles(store, key: str):
+    """An appendable (rows, 3) triangle writer that registers ``key`` at
+    ``close()``; a chunked store writes full chunks as they fill."""
+    return store.stream_put(key, np.int64, (3,))

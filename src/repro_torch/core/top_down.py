@@ -17,8 +17,10 @@ triangle with an undecided edge are pruned (Steps 7-9).  The next level's
 candidate is pre-built before the current level's result is read.
 
 With a ``budget``, stage 1 is ``bottom_up.partitioned_support``: exact
-supports under the working-set budget, by partition rounds on the host.
-The levels then peel through the fused round kernel as without one.
+supports under the working-set budget, by partition rounds on the host,
+optionally with the working graph in a graph store (``store=``).  The
+levels then peel through the fused round kernel as without one; they work
+on G_new, which stays on the host.
 
 Deviation from the paper (as in the reference, which proves it exact):
 external unclassified edges are excluded from the candidate peel;
@@ -26,8 +28,8 @@ external unclassified edges are excluded from the candidate peel;
 
 Journal and retries as in ``bottom_up``: stage-1 credit rounds are "sup"
 snapshots, completed levels "td" snapshots; a failed level peel walks
-``bottom_up._retry_candidate_peel``.  Not ported yet: the graph store (A7)
-and the mesh paths (A13).
+``bottom_up._retry_candidate_peel``.  Not ported yet: the mesh paths
+(A13).
 """
 
 from __future__ import annotations
@@ -118,17 +120,23 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
     ``resume=True`` continues from the newest intact snapshot to the phi of
     an uninterrupted run (psi, G_new and its triangle list are recomputed
     from the journaled supports).  ``max_retries`` bounds the retries of a
-    failed level peel or credit round.  ``device=None`` means the CUDA
-    card; ``store`` and ``mesh`` raise ``NotImplementedError`` (ROADMAP
-    A7, A13).
+    failed level peel or credit round.  ``store`` routes stage 1's working
+    graph through a graph store and needs a ``budget`` (the unbudgeted
+    supports are computed over the whole resident graph).  ``device=None``
+    means the CUDA card; ``mesh`` raises ``NotImplementedError`` (ROADMAP
+    A13).
     """
-    reject_unported(mesh=mesh, store=store)
+    reject_unported(mesh=mesh)
     check_kernel(kernel)
     dev = resolve_device(device)
     edges = glib.canonical_edges(edges, n)
     m = len(edges)
     phi = np.zeros(m, dtype=np.int64)
     stats = OocStats()
+    if store is not None and budget is None:
+        raise ValueError(
+            "store= requires a working-set budget (the unbudgeted support "
+            "path computes over the whole resident graph)")
     if m == 0:
         return TopDownResult(edges, phi, [], 2, [], 0, stats)
 
@@ -138,7 +146,7 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
                        partitioner_seed, t=t, faithful=bool(faithful_proc8),
                        devices=1)
         journal = RoundJournal(checkpoint_dir, key, every=checkpoint_every,
-                               keep=checkpoint_keep)
+                               keep=checkpoint_keep, store=store)
         if resume:
             snap = journal.load_latest()
     td_snap = snap if snap is not None and snap[1].get("stage") == "td" \
@@ -158,7 +166,7 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
             partitioner_seed=partitioner_seed, journal=journal,
             restored=snap if snap is not None
             and snap[1].get("stage") == "sup" else None,
-            max_retries=max_retries)
+            max_retries=max_retries, store=store)
     phi[sup == 0] = 2
     alive = sup > 0                      # G_new
     psi = upper_bounds(n, edges, sup)

@@ -150,18 +150,33 @@ def test_split_bucket_lanes_equal():
 
 
 def test_unported_support_arguments_raise():
+    """``mesh`` and ``engine="perpart"`` still raise naming their ROADMAP
+    item.  ``store=`` and ``partitioner="locality"`` have been ported since
+    and give the reference's supports and phi."""
+    from repro.core.store import InMemoryStore as JInMemoryStore
+    from repro_torch.core.store import InMemoryStore
+
     name, n, edges = CORPUS[0]
-    for kw, item in ((dict(mesh=object()), "A13"), (dict(store=object()),
-                                                    "A7"),
+    for kw, item in ((dict(mesh=object()), "A13"),
                      (dict(engine="perpart"), "A12")):
         with pytest.raises(NotImplementedError, match=item):
             tbu.partitioned_support(n, edges, 64, **kw)
+    with InMemoryStore() as store, JInMemoryStore() as jstore:
+        np.testing.assert_array_equal(
+            tbu.partitioned_support(n, edges, 64, store=store),
+            jbu.partitioned_support(n, edges, 64, store=jstore))
     with pytest.raises(ValueError):
         tbu.partitioned_support(n, edges, 64, engine="bogus")
-    for kw, item in ((dict(mesh=object()), "A13"), (dict(store=object()),
-                                                    "A7")):
-        with pytest.raises(NotImplementedError, match=item):
-            ttd.top_down_decompose(n, edges, budget=64, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ttd.top_down_decompose(n, edges, budget=64, partitioner="locality",
-                               device="cpu")
+    with pytest.raises(NotImplementedError, match="A13"):
+        ttd.top_down_decompose(n, edges, budget=64, device="cpu",
+                               mesh=object())
+    with InMemoryStore() as store, JInMemoryStore() as jstore:
+        np.testing.assert_array_equal(
+            ttd.top_down_decompose(n, edges, budget=64, device="cpu",
+                                   store=store).phi,
+            jtd.top_down_decompose(n, edges, budget=64, store=jstore).phi)
+    np.testing.assert_array_equal(
+        _quiet(ttd.top_down_decompose, n, edges, budget=64,
+               partitioner="locality", device="cpu").phi,
+        _quiet(jtd.top_down_decompose, n, edges, budget=64,
+               partitioner="locality").phi)

@@ -7,7 +7,7 @@ also the reference's; and under the same interruption the reference and
 the port journal and resume alike (``checkpoints``, ``resumed_round``).
 The SIGKILL smoke kills a child process that imports only ``repro_torch``
 and resumes in this one.  The locality and store cases of the reference's
-file wait for those modules (ROADMAP A8, A7).
+file are in ``test_torch_locality.py`` and ``test_torch_store_drivers.py``.
 """
 
 import contextlib
@@ -248,10 +248,12 @@ def test_ooc_stats_round_trip_keeps_floats():
     assert isinstance(back.round_build_s, float) and back.round_build_s == 1.25
     assert isinstance(back.rounds, int)
     # the reference's counters are all fields of the port's, but for the
-    # store and maintenance ones (ROADMAP A7, A11)
+    # maintenance ones (ROADMAP A11)
     shared = set(d) & set(jbu.OocStats().as_dict())
     assert {"devices", "sharded_rounds", "retries", "degraded",
-            "checkpoints", "resumed_round"} <= shared
+            "checkpoints", "resumed_round", "chunk_reads", "chunk_writes",
+            "bytes_spilled", "prefetch_hits", "prefetch_misses",
+            "tri_spill_rows", "tri_reload_peak_rows"} <= shared
 
 
 @pytest.mark.parametrize("engine", ["bottom-up", "top-down"])

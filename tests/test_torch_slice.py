@@ -254,6 +254,11 @@ def test_port_runs_with_jax_blocked():
         "    td = top_down.top_down_decompose(5, e, budget=64, device='cpu',"
         " checkpoint_dir=d)\n"
         "    assert (td.phi == phi).all() and manager.latest_step(d)\n"
+        "    from repro_torch.core.store import ChunkedDiskStore\n"
+        "    with ChunkedDiskStore(d + '/store', chunk_bytes=64) as st:\n"
+        "        bu = bottom_up.bottom_up_decompose(5, e, 64, device='cpu',"
+        " partitioner='locality', store=st)\n"
+        "    assert (bu.phi == phi).all() and bu.stats.chunk_writes > 0\n"
         "cfg = dataclasses.replace(reduced_lm(registry.get_config("
         "'gemma3-4b')), use_flash_kernel=True, window=8)\n"
         "p = T.init_params(torch.Generator().manual_seed(0), cfg)\n"
@@ -343,20 +348,27 @@ def test_moe_configs_raise(arch):
     dict(phi0=np.zeros(3)), dict(partitioner="locality", engine="bottom-up"),
     dict(engine="top-down")])
 def test_unported_arguments_raise(kw, tmp_path):
-    """Unported arguments raise naming their ROADMAP item.  Three cases
-    have been ported since (journal and resume, budgeted top-down) and
-    check what replaced the error: on the in-memory route
-    ``checkpoint_dir`` warns and is ignored and ``resume`` is ignored, as
-    in the reference; ``engine="top-down"`` gives the reference's phi."""
+    """Unported arguments raise naming their ROADMAP item.  Six cases have
+    been ported since and check what replaced the error, as in the
+    reference: on the in-memory route ``checkpoint_dir``, ``store`` and
+    ``host_memory_budget`` warn and are ignored and ``resume`` is ignored;
+    ``engine="top-down"`` and ``partitioner="locality"`` give the
+    reference's phi."""
     e = np.array([[0, 1], [1, 2], [0, 2]])
     want = jpeel.truss_decompose(3, e, **{
-        k: v for k, v in kw.items() if k == "engine"})
+        k: v for k, v in kw.items() if k in ("engine", "partitioner")})
     if "checkpoint_dir" in kw:
         with pytest.warns(UserWarning, match="in-memory"):
             got = tpeel.truss_decompose(3, e, device="cpu",
                                         checkpoint_dir=str(tmp_path))
         assert not list(tmp_path.iterdir())
-    elif "resume" in kw or kw == dict(engine="top-down"):
+    elif "store" in kw or "host_memory_budget" in kw:
+        with pytest.warns(UserWarning, match="in-memory"):
+            jpeel.truss_decompose(3, e, **kw)
+        with pytest.warns(UserWarning, match="in-memory"):
+            got = tpeel.truss_decompose(3, e, device="cpu", **kw)
+    elif ("resume" in kw or kw == dict(engine="top-down")
+          or "partitioner" in kw):
         got = tpeel.truss_decompose(3, e, device="cpu", **kw)
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -375,17 +387,32 @@ def test_invalid_arguments_rejected(tmp_path):
         tpeel.truss_decompose(3, e, engine="bogus", device="cpu")
     with pytest.raises(ValueError):
         tbu.bottom_up_decompose(3, e, 64, partitioner="bogus", device="cpu")
-    # budget= and checkpoint_dir= are ported: a budgeted top-down gives the
-    # reference's phi, and bottom-up journals; store= still raises (A7)
+    # budget=, checkpoint_dir= and store= are ported: a budgeted top-down
+    # gives the reference's phi, bottom-up journals, a store run gives the
+    # reference's phi, and a store without a budget is refused
     np.testing.assert_array_equal(
         ttd.top_down_decompose(3, e, budget=64, device="cpu").phi,
         jtd.top_down_decompose(3, e, budget=64).phi)
     res = tbu.bottom_up_decompose(3, e, 64, device="cpu",
                                   checkpoint_dir=str(tmp_path))
     assert res.stats.checkpoints > 0 and list(tmp_path.iterdir())
+    from repro.core.store import InMemoryStore as JInMemoryStore
+    from repro_torch.core.store import InMemoryStore
+
+    with InMemoryStore() as store, JInMemoryStore() as jstore:
+        np.testing.assert_array_equal(
+            tbu.bottom_up_decompose(3, e, 64, device="cpu", store=store).phi,
+            jbu.bottom_up_decompose(3, e, 64, store=jstore).phi)
+    with InMemoryStore() as store, JInMemoryStore() as jstore:
+        np.testing.assert_array_equal(
+            ttd.top_down_decompose(3, e, budget=64, device="cpu",
+                                   store=store).phi,
+            jtd.top_down_decompose(3, e, budget=64, store=jstore).phi)
+    with InMemoryStore() as store:
+        with pytest.raises(ValueError, match="budget"):
+            ttd.top_down_decompose(3, e, budget=None, device="cpu",
+                                   store=store)
     for fn in (tbu.bottom_up_decompose, ttd.top_down_decompose):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            fn(3, e, 64, device="cpu", store=object())
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(3, e, 64, device="cpu", checkpoint_dir=str(tmp_path),
                mesh=object())
