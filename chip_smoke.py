@@ -77,6 +77,31 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
        the call with a new store on the same directory, which must sweep
        the dead run's files; the resumed phi must equal the in-memory one,
        ``resumed_round`` at least 0;
+8. after 5h: maintenance and the last ported modules, each through
+   ``run_phase``, held to the JAX package's answers for the same calls
+   (``MAINT_DIGESTS``, made by ``tools/smoke_digests.py``):
+   8a. an edit stream on phase 4's graph from phase 4a's phi:
+       ``truss_maintain`` of ``edit_batch``'s 1 and 64 edits (the draw of
+       ``benchmarks/run.py``'s ``table5maint``), each followed by a
+       recompute of the maintained edges on the card; phi equal to the
+       recompute and to the digest, B1 launched at b = 64, and
+       ``speedup_vs_recompute`` at least 5 at b = 1 (the reference's gate);
+       B1 is then checked and timed on the largest call the maintenance
+       gave it;
+   8b. 16 edits on 5f's graph through a disk store in 5h's regime,
+       journaled every edit: phi and the write counters equal the JAX
+       package's; a child process (importing only ``repro_torch``) running
+       the same call is SIGKILLed before edit 8 and resumed here on the
+       same journal: the same phi, ``resumed_round`` 7, edits 8-15 alone
+       replayed;
+   8c. Table 6 on phase 3's graph: core numbers and the c_max-core on the
+       card, the k_max-truss from phase 3's phi, and V, E, k and the
+       clustering coefficients of both, equal to the JAX package's;
+   8d. the global-iterate peel (``peel_recompute``) on phase 4's triangle
+       list: phi equal to phase 4a's;
+   8e. the per-part seed baseline, ``bottom_up_decompose(engine=
+       "perpart")``, on 5f's graph: phi equal to the rmat13 digest, rounds
+       and scans equal to the JAX package's;
 6. phi of every graph of phases 3-5 (4b, 4c and 5d included) against
    digests of the JAX package's answer, and the paper's Figure-2 graph
    against the port's serial oracle;
@@ -89,11 +114,13 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    how far the plain path's logits move with a window off by one key and
    with no window at all, as a measure of what that limit can see.
 
-Two main paths: the truss path (phases 3-5d) and the LM path (phase 7);
-5e-5h read their own launches, each through ``run_phase``.
+Three main paths: the truss path (phases 3-5d), the maintenance path (8a)
+and the LM path (phase 7); 5e-5h and 8b-8e read their own launches, each
+through ``run_phase``.
 Every launch counter is set to 0 just before each and read just after it,
 and each kernel of the path must have launched (B1 and B2 on the truss
-path, B3 on the LM path; no model path reaches B4).  The kernels are then
+path, B1 on the maintenance path, B3 on the LM path; no model path reaches
+B4).  The kernels are then
 checked and timed again on the largest inputs their path gave them (B3:
 the largest of its global and of its windowed calls).  The line before
 the last is a JSON object listing every kernel; the last line is
@@ -232,6 +259,7 @@ LOGITS_TOL = dict(rtol=0.05, atol=0.15)
 #       k, c = np.unique(phi, return_counts=True)
 #       print(len(e), phi.max(), dict(zip(k.tolist(), c.tolist())),
 #             hashlib.sha256(phi.tobytes()).hexdigest())"
+# and rmat13 (rmat(13, 8, seed=5), phases 8b and 8e) by tools/smoke_digests.py
 DIGESTS = {
     "rmat17": dict(
         m=971_168, triangles=8_750_686, kmax=95,
@@ -262,6 +290,15 @@ DIGESTS = {
                  35: 2087, 36: 2395, 37: 2546, 38: 2180, 39: 1861, 40: 927,
                  41: 726, 42: 566, 43: 295, 44: 63, 45: 2, 47: 63, 55: 1,
                  56: 2, 57: 79, 58: 81, 59: 5593}),
+    "rmat13": dict(
+        m=55_421, triangles=320_966, kmax=36,
+        sha256="94a093e7e9cb7df2072f2c9d2e9c1740816a807afd280453603e34813b134806",
+        classes={2: 6892, 3: 5723, 4: 4948, 5: 4005, 6: 3444, 7: 2749,
+                 8: 2798, 9: 2605, 10: 2278, 11: 1796, 12: 1528, 13: 1045,
+                 14: 1141, 15: 983, 16: 904, 17: 886, 18: 787, 19: 1274,
+                 20: 1317, 21: 1563, 22: 1034, 23: 1086, 24: 693, 25: 572,
+                 26: 147, 27: 40, 28: 39, 29: 83, 32: 1, 33: 8, 34: 155,
+                 35: 271, 36: 2626}),
     "er2048": dict(
         m=314_000, triangles=7_714_423, kmax=46,
         sha256="0bc1009d28a216e28810f6a5e7ad20af3c7988ea495fdc97aaf3982fe9f71c7e",
@@ -855,6 +892,25 @@ def io_row(st, peak: int) -> dict:
     return row
 
 
+def edit_batch(n: int, edges: np.ndarray, b: int) -> list:
+    """A batch of b edits as ``benchmarks/run.py::table5_maintenance`` draws
+    them, from a fresh ``default_rng(9)``: b // 2 deletions of edges of the
+    canonical list ``edges``, then insertions of new uniform pairs."""
+    rng = np.random.default_rng(9)
+    present = {tuple(e) for e in np.asarray(edges).tolist()}
+    steps = [("delete", int(u), int(v))
+             for u, v in (edges[i] for i in rng.choice(
+                 len(edges), b // 2, replace=False))]
+    while len(steps) < b:
+        u, v = (int(x) for x in rng.integers(0, n, 2))
+        lo, hi = min(u, v), max(u, v)
+        if lo == hi or (lo, hi) in present:
+            continue
+        present.add((lo, hi))
+        steps.append(("insert", lo, hi))
+    return steps
+
+
 # phase 5h's child: bottom-up on rmat13 through a disk store, journaled at
 # every round, killed by a "kill" rule at the nth chunk write.  It imports
 # only repro_torch.
@@ -988,6 +1044,293 @@ def store_phases(truss_decompose, estimate_working_set, build_graph, rmat,
     return out
 
 
+def b1_probe(torch, fk) -> Probe:
+    """The B1 wrapper's probe on a path: each call's rows read and written
+    are summed on the device (known there only) and read at the end; the
+    largest call's inputs are kept (cloned: the loops reuse the buffers)."""
+    return Probe(torch, fk, "fused_round_live",
+                 size=lambda s, a, r, t, n, to, no: s.numel() + t.numel(),
+                 bound=lambda *a: 0.0,
+                 note=lambda s, a, r, t, n, to, no: (
+                     s.shape[0], s.shape[1], t.shape[1], n.sum(), no.sum()),
+                 keep=lambda s, a, r, t, n, to, no: (s, a, r, t.clone(),
+                                                     n.clone()))
+
+
+def b1_rows(torch, probe) -> dict:
+    """Rows read and written over a probe's B1 calls, and their bound."""
+    reads = torch.stack([nt[3] for nt in probe.notes]).tolist()
+    writes = torch.stack([nt[4] for nt in probe.notes]).tolist()
+    return dict(
+        rows_read=int(sum(reads)), rows_written=int(sum(writes)),
+        padded_rows=sum(B * pow4_ceil(T) for B, _, T, _, _ in probe.notes),
+        bound_ms=sum(b1_bound_ms(B, E, r, w) for (B, E, _, _, _), r, w
+                     in zip(probe.notes, reads, writes)))
+
+
+# phases 8a-8e: what the JAX package gives for the same calls, printed by
+# tools/smoke_digests.py (see its docstring; made on the CPU)
+MAINT_DIGESTS = {
+    "8a_b1": dict(
+        m=234_004, edits_applied=1, maintain_levels=0, affected_edges=0,
+        sha256="29f6c5c9def131d3088fb6105e0610d35843387632f2abf4aef9343beacb8497"),
+    "8a_b64": dict(
+        m=234_003, edits_applied=64, maintain_levels=171, affected_edges=48_129,
+        sha256="a8605711cb88a07b61621bdd67d506cb0092b7da706d99e7081d40ae43224625"),
+    "8b": dict(
+        m=55_421, edits_applied=16, maintain_levels=46, affected_edges=4_217,
+        chunk_writes=630, bytes_spilled=6_730_444,
+        sha256="2c2844e69221424d304f1fbb3302b3101add42ff28286b5eab2b84db5667dc13"),
+    "8c": dict(
+        cmax=165, kmax=95, vt=148, vc=789, et=9_410, ec=91_360,
+        cct=0.8697008877966349, ccc=0.3985649778721447,
+        core_sha256="0513532c86fd05ce42142f9b1e6f085eba25f8f0797c096e5f8b0a996ecad6d8"),
+    "8e": dict(part_budget=6_927, rounds=24, scans=228),
+}
+
+
+def check_maint(where: str, res, want: dict) -> None:
+    """A maintenance result against the reference's phi digest and
+    counters."""
+    st = res.stats
+    got = dict(m=res.graph.m, sha256=hashlib.sha256(
+        np.asarray(res.phi).astype(np.int64).tobytes()).hexdigest(),
+        edits_applied=st.edits_applied, maintain_levels=st.maintain_levels,
+        affected_edges=st.affected_edges)
+    got.update({k: int(getattr(st, k)) for k in want if k not in got})
+    if got != want:
+        diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+        raise AssertionError(f"{where}: differs from the JAX package's "
+                             f"maintenance: {diff}")
+
+
+def edit_stream(truss_maintain, truss_decompose, run_phase, phase_walls,
+                phase_launches, n, edges, phi0, dev) -> dict:
+    """Phase 8a on R-MAT scale 15: ``truss_maintain`` of
+    :func:`edit_batch`'s b = 1 and b = 64 edits from phase 4a's phi, each
+    followed by a recompute of the maintained edge list on the card.  The
+    maintained phi must equal the recompute bit for bit and the JAX
+    package's digest (``MAINT_DIGESTS``); at b = 1 the recompute must take
+    at least 5x the maintenance's wall (the reference's ``table5maint``
+    gate), and at b = 64 B1 must have launched."""
+    out = {}
+    for b in (1, 64):
+        steps = edit_batch(n, edges, b)
+        tag, rtag = f"8a maintain b={b} rmat15", f"8a recompute b={b} rmat15"
+        res = run_phase(tag, lambda: truss_maintain((n, edges), phi0, steps,
+                                                    device=dev))
+        phi_r = run_phase(rtag, lambda: truss_decompose(
+            res.graph.n, res.graph.edges, device=dev))
+        st = res.stats
+        row = dict(b=b, m=res.graph.m, edits_applied=st.edits_applied,
+                   maintain_levels=st.maintain_levels,
+                   affected_edges=st.affected_edges,
+                   wall_s=round(phase_walls[tag], 3),
+                   recompute_s=round(phase_walls[rtag], 3),
+                   speedup_vs_recompute=round(
+                       phase_walls[rtag] / phase_walls[tag], 2),
+                   launches=phase_launches[tag]["B1"])
+        out[f"b{b}"] = row
+        say(f"[8a] {row}")
+        if not np.array_equal(res.phi, phi_r):
+            raise AssertionError(f"8a: the maintained phi differs from the "
+                                 f"recompute at b={b}")
+        check_maint(f"8a b={b}", res, MAINT_DIGESTS[f"8a_b{b}"])
+    if out["b64"]["launches"] == 0:
+        raise AssertionError("8a: the b=64 maintenance never launched B1")
+    if out["b1"]["speedup_vs_recompute"] < 5:
+        raise AssertionError(f"8a: speedup_vs_recompute "
+                             f"{out['b1']['speedup_vs_recompute']} < 5 at "
+                             f"b=1")
+    return out
+
+
+# phase 8b's child: maintenance of 16 edits on rmat13 through a disk store,
+# journaled at every edit, killed by a "kill" rule at the "maintain" site of
+# edit K.  It imports only repro_torch.
+MAINT_KILL_CHILD = r"""
+import json
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+from repro_torch.core import faults
+from repro_torch.core.maintain import truss_maintain
+from repro_torch.core.store import ChunkedDiskStore
+from repro_torch.data.graphgen import rmat
+
+journal, store_dir, inputs, host_budget, chunk_bytes, k_edit, device = \
+    sys.argv[1:8]
+n, edges = rmat(13, 8, seed=5)
+phi0 = np.load(inputs + "/phi0.npy")
+with open(inputs + "/steps.json") as f:
+    steps = [tuple(s) for s in json.load(f)]
+faults.install(faults.FaultPlan([faults.FaultRule(
+    site=faults.MAINTAIN, kind="kill", where={"edit": int(k_edit)})]))
+with ChunkedDiskStore(store_dir, host_memory_budget=int(host_budget),
+                      chunk_bytes=int(chunk_bytes)) as store:
+    truss_maintain((n, edges), phi0, steps, store=store,
+                   checkpoint_dir=journal, checkpoint_every=1, device=device)
+print("the child was not killed")
+"""
+MAINT_KILL_EDIT = 8
+
+
+def maintain_kill_and_resume(truss_maintain, truss_decompose, build_graph,
+                             rmat, ChunkedDiskStore, faults, ckpt,
+                             run_phase, phase_launches, dev) -> dict:
+    """Phase 8b on R-MAT scale 13, seed 5: 16 edits of :func:`edit_batch`
+    maintained through a disk store in :func:`store_budget`'s regime,
+    journaled every edit.  The uninterrupted run's phi and write counters
+    must equal the JAX package's (``MAINT_DIGESTS``).  A child (importing
+    only ``repro_torch``) runs the same call and is SIGKILLed before edit
+    ``MAINT_KILL_EDIT``; this process resumes it on the same journal with a
+    new store on the child's directory: phi equal to the uninterrupted
+    run's, ``resumed_round`` the edit before the kill, and the ``maintain``
+    site reached only by the edits after it."""
+    n, edges = rmat(13, 8, seed=5)
+    g = build_graph(n, edges)
+    _, host_budget, chunk_bytes = store_budget(g)
+    store_kw = dict(host_memory_budget=host_budget, chunk_bytes=chunk_bytes)
+    phi0 = truss_decompose(n, edges, device=dev)
+    check_digest("rmat13", phi0)
+    steps = edit_batch(n, edges, 16)
+    out = dict(graph="rmat13", m=g.m, edits=len(steps), **store_kw)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_maint_") as top:
+        def call(journal, store, **kw):
+            return truss_maintain((n, edges), phi0, steps, store=store,
+                                  checkpoint_dir=os.path.join(top, journal),
+                                  checkpoint_every=1, device=dev, **kw)
+
+        tag = "8b uninterrupted maintain rmat13 disk store"
+        with ChunkedDiskStore(os.path.join(top, "full"), **store_kw) as st_:
+            full = run_phase(tag, lambda: call("full-journal", st_))
+            peak = st_.stats.peak_resident_bytes
+        check_maint("8b", full, MAINT_DIGESTS["8b"])
+        out["uninterrupted"] = dict(
+            maintain_levels=full.stats.maintain_levels,
+            affected_edges=full.stats.affected_edges,
+            launches=phase_launches[tag]["B1"], **io_row(full.stats, peak))
+        np.save(os.path.join(top, "phi0.npy"), phi0)
+        with open(os.path.join(top, "steps.json"), "w") as f:
+            json.dump(steps, f)
+        sd = os.path.join(top, "store")
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        child = subprocess.run(
+            [sys.executable, "-c", MAINT_KILL_CHILD,
+             os.path.join(top, "journal"), sd, top, str(host_budget),
+             str(chunk_bytes), str(MAINT_KILL_EDIT), str(dev)], env=env,
+            capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if child.returncode != -signal.SIGKILL:
+            raise AssertionError(
+                f"8b: the child exited with {child.returncode}, not by "
+                f"SIGKILL: {child.stdout[-800:]} {child.stderr[-2000:]}")
+        _, meta = ckpt.restore(os.path.join(top, "journal"))
+        # counts every maintain check of the resume; fires never
+        seen = faults.FaultRule(site=faults.MAINTAIN, kind="error",
+                                nth=1 << 30)
+        tag = "8b resume maintain rmat13 disk store"
+        with ChunkedDiskStore(sd, **store_kw) as store, \
+                faults.active(faults.FaultPlan([seen])):
+            res = run_phase(tag, lambda: call("journal", store, resume=True))
+            peak = store.stats.peak_resident_bytes
+    out["resume"] = dict(
+        kill_at_edit=MAINT_KILL_EDIT, child_s=round(child_s, 3),
+        journal_stage=meta["stage"], journal_index=meta["index"],
+        resumed_round=res.stats.resumed_round, edits_replayed=seen.seen,
+        launches=phase_launches[tag]["B1"], **io_row(res.stats, peak))
+    say(f"[8b] {out}")
+    if not np.array_equal(res.phi, full.phi) or \
+            not np.array_equal(res.graph.edges, full.graph.edges):
+        raise AssertionError("8b: the resumed phi or graph differs from the "
+                             "uninterrupted run's")
+    want = MAINT_KILL_EDIT - 1
+    if (meta["stage"], meta["index"], res.stats.resumed_round,
+            seen.seen) != ("maint", want, want, len(steps) - want - 1):
+        raise AssertionError(f"8b: journal {meta['stage']} "
+                             f"{meta['index']}, resumed_round "
+                             f"{res.stats.resumed_round}, {seen.seen} edits "
+                             f"replayed; expected edits {want + 1}-"
+                             f"{len(steps) - 1} only")
+    return out
+
+
+def table6(core_decompose, cmax_core, clustering_coefficient,
+           incident_vertices, canonical_edges, run_phase, n, edges, phi,
+           dev) -> dict:
+    """Phase 8c, Table 6 on R-MAT scale 17: the core numbers
+    (``core_decompose``, against the JAX package's digest) and the
+    c_max-core (``cmax_core``) on the card, the k_max-truss from phase 3's
+    phi, and the row of ``benchmarks/run.py::table6_truss_vs_core``; every
+    number, the clustering coefficients too, must equal the JAX
+    package's."""
+    core, (cmax, c_edges) = run_phase("8c core decomposition rmat17", lambda: (
+        core_decompose(n, edges, device=dev), cmax_core(n, edges, device=dev)))
+    kmax = int(phi.max())
+    t_edges = canonical_edges(edges, n)[phi == kmax]
+    t0 = time.perf_counter()
+    got = dict(core_sha256=hashlib.sha256(
+        np.asarray(core).astype(np.int64).tobytes()).hexdigest(),
+        cmax=cmax, kmax=kmax, vt=len(incident_vertices(t_edges)),
+        vc=len(incident_vertices(c_edges)), et=len(t_edges), ec=len(c_edges),
+        cct=clustering_coefficient(n, t_edges),
+        ccc=clustering_coefficient(n, c_edges))
+    host_s = time.perf_counter() - t0
+    say(f"[8c] VT/VC={got['vt']}/{got['vc']};ET/EC={got['et']}/{got['ec']};"
+        f"kmax/cmax={kmax}/{cmax};CCT/CCC={got['cct']:.2f}/{got['ccc']:.2f} "
+        f"(CCT {got['cct']!r}, CCC {got['ccc']!r}; clustering coefficients "
+        f"on the host in {host_s:.3f} s)")
+    want = MAINT_DIGESTS["8c"]
+    if got != want:
+        diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+        raise AssertionError(f"8c: differs from the JAX package's Table 6 "
+                             f"row: {diff}")
+    return dict(got, clustering_host_s=round(host_s, 3))
+
+
+def global_iterate(peel_recompute, list_triangles, run_phase, rdev, g,
+                   phi_want, dev) -> dict:
+    """Phase 8d: ``peel_recompute`` (every round recounts every support)
+    on phase 4's graph and triangle list; phi must equal phase 4a's.  Its
+    rounds are its host syncs less the one read that finds no edge alive."""
+    tris = list_triangles(g)
+    tag = "8d global-iterate peel rmat15"
+    s0 = rdev.SYNCS
+    phi = run_phase(tag, lambda: peel_recompute(
+        tris, np.ones(g.m, bool), device=dev))
+    out = dict(triangles=len(tris), rounds=rdev.SYNCS - s0 - 1)
+    say(f"[8d] {out}")
+    if not np.array_equal(phi.cpu().numpy().astype(np.int64), phi_want):
+        raise AssertionError("8d: the global-iterate phi differs from "
+                             "phase 4a's")
+    return out
+
+
+def perpart(bottom_up_decompose, estimate_working_set, build_graph, rmat,
+            run_phase, dev) -> dict:
+    """Phase 8e: the per-part seed baseline, ``bottom_up_decompose(engine=
+    "perpart")``, on R-MAT scale 13 at the partition budget that
+    ``truss_decompose`` derives from 5f's ``estimate_working_set // 16``;
+    phi must equal the rmat13 digest, and rounds and scans the JAX
+    package's."""
+    n, edges = rmat(13, 8, seed=5)
+    g = build_graph(n, edges)
+    est = estimate_working_set(g)
+    part_budget = max(64, (2 * g.m * (est // 16)) // max(est, 1))
+    res = run_phase("8e per-part bottom-up rmat13", lambda: bottom_up_decompose(
+        n, edges, part_budget, engine="perpart", device=dev))
+    got = dict(part_budget=part_budget, rounds=res.rounds, scans=res.scans)
+    say(f"[8e] {got}; parts {res.stats.parts}, largest NS "
+        f"{res.stats.max_part_edges} edges, levels {len(res.candidate_sizes)}")
+    check_digest("rmat13", res.phi)
+    if got != MAINT_DIGESTS["8e"]:
+        raise AssertionError(f"8e: {got}, the JAX package's "
+                             f"{MAINT_DIGESTS['8e']}")
+    return got
+
+
 def main(argv) -> int:
     import torch
     from torch.autograd import DeviceType
@@ -1004,11 +1347,16 @@ def main(argv) -> int:
     from repro_torch import device as rdev
     from repro_torch.checkpoint import manager as ckpt
     from repro_torch.core import faults, serial
-    from repro_torch.core.graph import build_graph, canonical_edges
-    from repro_torch.core.peel import estimate_working_set, truss_decompose
+    from repro_torch.core.graph import (build_graph, canonical_edges,
+                                        clustering_coefficient,
+                                        incident_vertices)
+    from repro_torch.core.kcore import cmax_core, core_decompose
+    from repro_torch.core.maintain import truss_maintain
+    from repro_torch.core.peel import (estimate_working_set, peel_recompute,
+                                       truss_decompose)
     from repro_torch.core.bottom_up import bottom_up_decompose
     from repro_torch.core.store import ChunkedDiskStore
-    from repro_torch.core.support import edge_support
+    from repro_torch.core.support import edge_support, list_triangles
     from repro_torch.core.top_down import top_down_decompose
     from repro_torch.data.graphgen import erdos_renyi, rmat
     from repro_torch.kernels import build
@@ -1201,18 +1549,13 @@ def main(argv) -> int:
     zero_counts()
     # B1's bound counts the rows each call reads and writes, known on the
     # device only: the counts are summed after each call, read at the end
-    p1 = Probe(torch, fk, "fused_round_live",
-               size=lambda s, a, r, t, n, to, no: s.numel() + t.numel(),
-               bound=lambda *a: 0.0,
-               note=lambda s, a, r, t, n, to, no: (
-                   s.shape[0], s.shape[1], t.shape[1], n.sum(), no.sum()),
-               keep=lambda s, a, r, t, n, to, no: (s, a, r, t.clone(),
-                                                   n.clone()))
+    p1 = b1_probe(torch, fk)
     p2 = Probe(torch, tk, "triangle_count", size=lambda A, **kw: A.numel(),
                bound=lambda A, **kw: b2_bound(A.shape[0])[0])
     phase_launches = {}
     phase_walls = {}
     trace_ms: dict = {}        # --profile: device ms and calls by kernel name
+    phase_trace: dict = {}     # --profile: the same, by phase
 
     def run_phase(tag, fn):
         torch.cuda.synchronize()
@@ -1247,6 +1590,7 @@ def main(argv) -> int:
                     ns, cnt = per_name.get(e.name(), (0, 0))
                     per_name[e.name()] = (ns + e.duration_ns(), cnt + 1)
             busy = sum(ns for ns, _ in per_name.values()) / 1e9
+            phase_trace[tag] = per_name
             for name, (ns, cnt) in per_name.items():
                 ms0, cnt0 = trace_ms.get(name, (0.0, 0))
                 trace_ms[name] = (ms0 + ns / 1e6, cnt0 + cnt)
@@ -1395,13 +1739,7 @@ def main(argv) -> int:
         raise AssertionError("launch counters disagree with the calls seen")
     # rows each B1 call read and wrote, and the padded capacity (pow4 of its
     # buffer) that the sweep of every row before the live-row design read
-    reads = torch.stack([nt[3] for nt in p1.notes]).tolist()
-    writes = torch.stack([nt[4] for nt in p1.notes]).tolist()
-    b1_path = dict(
-        rows_read=int(sum(reads)), rows_written=int(sum(writes)),
-        padded_rows=sum(B * pow4_ceil(T) for B, _, T, _, _ in p1.notes),
-        bound_ms=sum(b1_bound_ms(B, E, r, w) for (B, E, _, _, _), r, w
-                     in zip(p1.notes, reads, writes)))
+    b1_path = b1_rows(torch, p1)
     say(f"[truss path] launches {launches}, device ms between each call's "
         f"events (host gaps included) "
         f"{ {k: round(v, 3) for k, v in total_ms.items()} }, summed bounds "
@@ -1446,6 +1784,58 @@ def main(argv) -> int:
     resilience["store"] = dict(rmat15_4c=disk, **store_phases(
         truss_decompose, estimate_working_set, build_graph, rmat,
         ChunkedDiskStore, ckpt, run_phase, phase_launches, dev))
+
+    # -- phases 8a-8e: maintenance, Table 6, the two baselines ---------------
+    pm = b1_probe(torch, fk)
+    maint = dict(edit_stream=edit_stream(
+        truss_maintain, truss_decompose, run_phase, phase_walls,
+        phase_launches, n15, e15, phi15, dev))
+    maint_host_ms = pm.close()
+    maint_tags = [t for t in phase_launches if t.startswith("8a maintain")]
+    maint_launches = sum(phase_launches[t]["B1"] for t in maint_tags)
+    if len(pm.events) != maint_launches:
+        raise AssertionError("8a: launch counters disagree with the calls "
+                             "seen")
+    maint_rows = b1_rows(torch, pm)
+    (sup, alive, rm, tris, n_rows), _ = pm.largest[None]
+    args = (sup, alive, rm, tris)
+    B, E, T = sup.shape[0], sup.shape[1], tris.shape[1]
+    rw = check_b1_live(torch, fk, fref, args, n_rows,
+                       f"on 8a's largest call (B={B} E={E} T={T})")
+    t_out, n_out = torch.empty_like(tris), torch.empty_like(n_rows)
+    b1_maint = dict(
+        launches=maint_launches, shape=[B, E, T],
+        max_abs_err=rw.pop("max_abs_err"),
+        ms=time_ms(torch, lambda: fk.fused_round_live(
+            *args, n_rows, t_out, n_out), 50),
+        plain_ms=time_ms(torch, lambda: fref.fused_round_live(
+            *args, n_rows), 20),
+        bound_ms=b1_bound_ms(B, E, rw["rows_read"], rw["rows_written"]),
+        **rw, total_host_inclusive_ms=maint_host_ms,
+        total_bound_ms=maint_rows["bound_ms"],
+        path_rows_read=maint_rows["rows_read"],
+        path_rows_written=maint_rows["rows_written"],
+        launch_shapes=sorted(pm.shapes.items(), key=lambda kv: -kv[1])[:4])
+    if profile:
+        b1_maint["total_ms"] = sum(
+            ns / 1e6 for t in maint_tags
+            for nm, (ns, _) in phase_trace[t].items() if B1_TRACE_NAME in nm)
+    say(f"[8a] B1 over the maintenance: {b1_maint}")
+    del sup, alive, rm, tris, args, t_out, pm
+    maint["kill_and_resume"] = maintain_kill_and_resume(
+        truss_maintain, truss_decompose, build_graph, rmat, ChunkedDiskStore,
+        faults, ckpt, run_phase, phase_launches, dev)
+    maint["table6"] = table6(core_decompose, cmax_core,
+                             clustering_coefficient, incident_vertices,
+                             canonical_edges, run_phase, n17, e17, phi17, dev)
+    maint["global_iterate"] = global_iterate(peel_recompute, list_triangles,
+                                             run_phase, rdev, g15, phi15, dev)
+    maint["perpart"] = perpart(bottom_up_decompose, estimate_working_set,
+                               build_graph, rmat, run_phase, dev)
+    if any(c[k] for t, c in phase_launches.items() if t.startswith("8")
+           for k in ("B2", "B3", "B4")):
+        raise AssertionError("phases 8a-8e launched B2, B3 or B4")
+    say(f"[8a-8e] {json.dumps(maint)}")
 
     # -- phase 6: digests -----------------------------------------------------
     for name, phi in (("rmat17", phi17), ("rmat15", phi15),
@@ -1558,7 +1948,10 @@ def main(argv) -> int:
         name="frontier_peel.fused_round_live", route="cuda",
         source="src/repro_torch/csrc/frontier_peel.cu",
         replaces="src/repro/kernels/frontier_peel/kernel.py:115",
-        launches=launches["frontier_peel"], max_abs_err=err,
+        launches=launches["frontier_peel"] + maint_launches,
+        launches_by_path={"truss (3-5d)": launches["frontier_peel"],
+                          "maintenance (8a)": maint_launches},
+        max_abs_err=max(err, b1_maint["max_abs_err"]),
         ms=time_ms(torch, lambda: fk.fused_round_live(
             *args, n_rows, t_out, n_out), 20),
         plain_ms=time_ms(torch, lambda: fref.fused_round_live(
@@ -1570,8 +1963,8 @@ def main(argv) -> int:
         total_bound_ms=b1_path["bound_ms"],
         path_rows_read=b1_path["rows_read"],
         path_rows_written=b1_path["rows_written"],
-        path_padded_rows=b1_path["padded_rows"], design=B1_DESIGN,
-        build=b1b2["frontier_peel"]))
+        path_padded_rows=b1_path["padded_rows"], maintenance=b1_maint,
+        design=B1_DESIGN, build=b1b2["frontier_peel"]))
     say(f"[truss path] B1 on the path's largest call B={B} E={E} T={T} "
         f"n_rows {n_rows.tolist()[:4]}: equal (rows read {rw['rows_read']}, "
         f"written {rw['rows_written']}); kernel {kernels[-1]['ms']:.4f} ms, "

@@ -44,8 +44,15 @@ yield, so the store's reads overlap the device peel.  The locality
 partitioner's zone state (the previous round's capture) is journaled with
 each stage-1 snapshot and restored on resume.
 
-Not ported yet (ROADMAP): the per-part engine (A12) and the mesh paths
-with the ladder's mesh-drop rung (A13).
+``engine="perpart"`` is the reference's per-part seed baseline, kept as a
+second implementation and a benchmark yardstick: every round rebuilds the
+working graph, and every part (stage 1) and level (stage 2) is built over
+the full vertex space, listed on the host and peeled by the in-memory
+engines (``peel.peel_classes`` / ``peel.peel_threshold``), with no journal,
+store or retry ladder.
+
+Not ported yet (ROADMAP A13): the mesh paths with the ladder's mesh-drop
+rung.
 """
 
 from __future__ import annotations
@@ -65,7 +72,8 @@ from repro_torch.core import faults
 from repro_torch.core import graph as glib
 from repro_torch.core import partition as plib
 from repro_torch.core import support as sup_lib
-from repro_torch.core.peel import (local_threshold_peel, peel_classes_batched,
+from repro_torch.core.peel import (local_threshold_peel, peel_classes,
+                                   peel_classes_batched, peel_threshold,
                                    reject_unported)
 from repro_torch.core.store import GraphStore
 from repro_torch.core.support import (list_triangles,
@@ -198,6 +206,9 @@ class OocStats:
     tri_spill_rows: int = 0   # largest triangle list (rows) spilled
     tri_reload_peak_rows: int = 0  # most triangle rows held at once while
     #                           reading a spilled list back
+    edits_applied: int = 0    # maintenance edits applied (core.maintain)
+    maintain_levels: int = 0  # per-level region peels run by maintenance
+    affected_edges: int = 0   # candidate edges summed over those levels
     round_build_s: float = 0.0      # host: stage-1 batch building
     candidate_build_s: float = 0.0  # host: candidate building
     peel_s: float = 0.0             # device peels, dispatch to result
@@ -549,10 +560,104 @@ def _retry_stage1_round(eng: _Engine, stats: OocStats, shape_cache,
             exc = e
 
 
+def _perpart_guard(engine: str, *, mesh=None, checkpointing=False,
+                   store=None) -> None:
+    """The per-part engine takes no mesh, journal or store (the reference's
+    errors); anything but the two engines raises."""
+    if engine == "perpart":
+        if mesh is not None:
+            raise ValueError("mesh= requires the batched engine")
+        if checkpointing:
+            raise ValueError(
+                "checkpointing requires the batched engine "
+                "(engine='perpart' is the uninstrumented seed baseline)")
+        if store is not None:
+            raise ValueError(
+                "store= requires the batched engine "
+                "(engine='perpart' is the uninstrumented seed baseline)")
+    elif engine != "batched":
+        raise ValueError(f"unknown engine {engine!r}")
+
+
+def _local_truss(sub_edges: np.ndarray, n: int, device) -> np.ndarray:
+    """Trussness of every edge of a subgraph (the per-part seed peel): one
+    ``build_graph`` over the full vertex space, one host listing and one
+    in-memory peel (``peel.peel_classes``) a call."""
+    g = glib.build_graph(n, sub_edges)
+    if g.m == 0:
+        return np.zeros(0, np.int64)
+    tris = list_triangles(g)
+    sup = support_from_triangle_list(tris, g.m).astype(np.int32)
+    if len(tris) == 0:
+        tris = np.full((1, 3), g.m, np.int32)  # points at the drop slot
+    phi, _ = peel_classes(sup, tris, np.ones(g.m, bool), device=device)
+    return phi.cpu().numpy().astype(np.int64)
+
+
+def _perpart_rounds(n, edges, budget, part_fn, stats: OocStats):
+    """The per-part seed's round loop, shared by its stage 1 and its
+    ``partitioned_support``: every round rebuilds the working graph over
+    the edges still in it and yields each non-empty part's NS as
+    ``(cur_ids, sub_ids, sub_edges, internal)`` (``cur_ids`` maps the
+    current graph's ids to the original ones).  The NS's internal edges
+    leave the working graph when the round ends; a round that removes none
+    doubles the budget.  Counts ``rounds`` and ``scans`` (one a part)."""
+    alive = np.ones(len(edges), dtype=bool)     # still in the working graph
+    cur_budget = budget
+    while alive.any():
+        stats.rounds += 1
+        cur_ids = np.nonzero(alive)[0]
+        g = glib.build_graph(n, edges[cur_ids])
+        parts = part_fn(g, cur_budget, stats.rounds)
+        if not parts:
+            break
+        round_removed = np.zeros(len(cur_ids), dtype=bool)
+        for part in parts:
+            stats.scans += 1
+            sub_ids, sub_edges, internal = glib.neighborhood_subgraph(g, part)
+            if len(sub_ids) == 0:
+                continue
+            yield cur_ids, sub_ids, sub_edges, internal
+            round_removed[sub_ids[internal]] = True
+        if not round_removed.any():
+            cur_budget *= 2                         # stall: grow the parts
+            continue
+        alive[cur_ids[round_removed]] = False
+
+
+def _lower_bounding_perpart(n, edges, budget, part_fn,
+                            device) -> LowerBoundResult:
+    """Stage 1 of the seed path: every round rebuilds the working graph,
+    scans each part's NS and peels it on its own (:func:`_local_truss`)."""
+    m = len(edges)
+    phi = np.zeros(m, dtype=np.int64)
+    lb = np.full(m, 2, dtype=np.int64)
+    in_gnew = np.zeros(m, dtype=bool)
+    stats = OocStats()
+    for cur_ids, sub_ids, sub_edges, internal in _perpart_rounds(
+            n, edges, budget, part_fn, stats):
+        stats.max_part_edges = max(stats.max_part_edges, len(sub_ids))
+        stats.real_edges += len(sub_ids)
+        stats.padded_slots += len(sub_ids)
+        phi_local = _local_truss(sub_edges, n, device)
+        glob_ids = cur_ids[sub_ids[internal]]       # original ids
+        lb[glob_ids] = np.maximum(lb[glob_ids], phi_local[internal])
+        if stats.rounds == 1:
+            is2 = phi_local[internal] == 2
+            phi[glob_ids[is2]] = 2
+            in_gnew[glob_ids[~is2]] = True
+        else:
+            in_gnew[glob_ids] = True
+    stats.parts = stats.batches = stats.scans       # one part a batch a scan
+    return LowerBoundResult(edges=edges, phi=phi, lb=lb, in_gnew=in_gnew,
+                            stats=stats)
+
+
 def lower_bounding(n: int, edges: np.ndarray, budget: int,
-                   partitioner: str = "sequential", *,
-                   partitioner_seed: int = 0, kernel: str = "auto",
-                   device=None, journal: Optional[RoundJournal] = None,
+                   partitioner: str = "sequential", engine: str = "batched",
+                   *, partitioner_seed: int = 0, kernel: str = "auto",
+                   device=None, mesh=None,
+                   journal: Optional[RoundJournal] = None,
                    restored=None, max_retries: int = 2,
                    engine_state: Optional[_Engine] = None,
                    store: Optional[GraphStore] = None) -> LowerBoundResult:
@@ -564,13 +669,21 @@ def lower_bounding(n: int, edges: np.ndarray, budget: int,
     included, and ``max_retries`` bounds the lane-split retries of a failed
     dispatch before the budget halves (:func:`_retry_stage1_round`).
     ``store`` keeps the working graph in a graph store between rounds; its
-    counters land in ``OocStats``.
+    counters land in ``OocStats``.  ``engine="perpart"`` runs the per-part
+    seed baseline instead (the same bounds; no journal, store or mesh).
+    ``mesh`` raises ``NotImplementedError`` on the batched engine (ROADMAP
+    A13).
     """
     check_kernel(kernel)
-    eng = engine_state if engine_state is not None else _Engine(
-        kernel=kernel, device=resolve_device(device))
     part_fn = _resolve_partitioner(partitioner, seed=partitioner_seed)
     edges = glib.canonical_edges(edges, n)
+    _perpart_guard(engine, mesh=mesh, store=store,
+                   checkpointing=journal is not None or restored is not None)
+    eng = engine_state if engine_state is not None else _Engine(
+        kernel=kernel, device=resolve_device(device))
+    if engine == "perpart":
+        return _lower_bounding_perpart(n, edges, budget, part_fn, eng.device)
+    reject_unported(mesh=mesh)
     m = len(edges)
     phi = np.zeros(m, dtype=np.int64)
     lb = np.full(m, 2, dtype=np.int64)
@@ -722,7 +835,8 @@ def _retry_candidate_peel(eng: _Engine, stats: OocStats, exc, dispatch,
 
 
 def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
-                        partitioner: str = "sequential", *,
+                        partitioner: str = "sequential",
+                        engine: str = "batched", *,
                         partitioner_seed: int = 0, kernel: str = "auto",
                         device=None, mesh=None, checkpoint_dir=None,
                         checkpoint_every: Union[int, str] = 1,
@@ -741,9 +855,17 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
     resumed_round`` record all of it.  ``store`` (a ``core.store``
     graph store) keeps stage 1's working graph and triangle list in the
     store between rounds, with the store's counters in ``OocStats``; it
-    changes no result and is not part of the journal's run key.  ``mesh``
-    raises ``NotImplementedError`` (ROADMAP A13).
+    changes no result and is not part of the journal's run key.
+
+    ``engine="perpart"`` is the per-part seed baseline: stage 1 by
+    :func:`_lower_bounding_perpart`, and every stage-2 level built over the
+    full vertex space, listed and peeled by ``peel.peel_threshold`` with
+    no pre-building; the same phi, rounds and scans as the reference's, no
+    journal or store.  ``mesh`` raises ``ValueError`` with it, and
+    ``NotImplementedError`` on the batched engine (ROADMAP A13).
     """
+    _perpart_guard(engine, mesh=mesh, store=store,
+                   checkpointing=checkpoint_dir is not None)
     reject_unported(mesh=mesh)
     check_kernel(kernel)
     dev = resolve_device(device)
@@ -769,7 +891,8 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
         k0 = int(meta["index"]) + 1     # the journaled level is complete
     else:
         lbres = lower_bounding(
-            n, edges, budget, partitioner, partitioner_seed=partitioner_seed,
+            n, edges, budget, partitioner, engine,
+            partitioner_seed=partitioner_seed,
             journal=journal, max_retries=max_retries, engine_state=eng,
             restored=snap if snap is not None
             and snap[1]["stage"] == "lb" else None, store=store)
@@ -781,24 +904,34 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
     cand_sizes: List[int] = []
     shape_cache: set = set()
 
+    def candidate_masks(k_b: int):
+        """H = NS(U_k) within the remaining edges, U_k the endpoints of the
+        remaining edges with lb <= k_b: ``(h_ids, internal)``, or None
+        when no remaining edge admits class k_b."""
+        elig = remaining & (lb <= k_b)
+        if not elig.any():
+            return None
+        u_k = np.zeros(n, dtype=bool)
+        eg = edges[elig]
+        u_k[eg[:, 0]] = True
+        u_k[eg[:, 1]] = True
+        u_in = u_k[edges[:, 0]]
+        v_in = u_k[edges[:, 1]]
+        return (np.nonzero(remaining & (u_in | v_in))[0],
+                remaining & u_in & v_in)
+
     def build_candidate(k_b: int):
-        """Host half of one stage-2 level: NS(U_k) from the current
-        ``remaining`` mask, compacted and triangle-listed; None when no
-        remaining edge admits class k_b.  Built one level ahead, its U is a
-        superset of the true U_{k+1}, which is sound (see the reference)."""
+        """Host half of one stage-2 level: the candidate of
+        :func:`candidate_masks`, compacted and triangle-listed; None when
+        no remaining edge admits class k_b.  Built one level ahead, its U
+        is a superset of the true U_{k+1}, which is sound (see the
+        reference)."""
         t0 = time.perf_counter()
         try:
-            elig = remaining & (lb <= k_b)
-            if not elig.any():
+            masks = candidate_masks(k_b)
+            if masks is None:
                 return None
-            u_k = np.zeros(n, dtype=bool)
-            eg = edges[elig]
-            u_k[eg[:, 0]] = True
-            u_k[eg[:, 1]] = True
-            u_in = u_k[edges[:, 0]]
-            v_in = u_k[edges[:, 1]]
-            h_ids = np.nonzero(remaining & (u_in | v_in))[0]
-            internal = remaining & u_in & v_in
+            h_ids, internal = masks
             local_edges, verts = glib.compact_edge_list(edges[h_ids])
             sub = glib.build_graph(len(verts), local_edges)
             tris = np.asarray(list_triangles(sub), np.int32).reshape(-1, 3)
@@ -823,6 +956,24 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
         # skip empty classes: jump k straight to the smallest lower bound
         k = max(k, int(lb[remaining].min()))
         stats.scans += 1
+        if engine == "perpart":
+            # the seed path: a blocking level over the full vertex space
+            # (not empty, by the k-jump above)
+            h_ids, internal = candidate_masks(k)
+            cand_sizes.append(len(h_ids))
+            sub = glib.build_graph(n, edges[h_ids])
+            tris = list_triangles(sub)
+            sup = support_from_triangle_list(tris, sub.m).astype(np.int32)
+            if len(tris) == 0:
+                tris = np.full((1, 3), sub.m, np.int32)
+            _, _, removed = peel_threshold(sup, tris, np.ones(sub.m, bool),
+                                           internal[h_ids], k - 2,
+                                           device=dev)
+            rm_glob = h_ids[removed.cpu().numpy()]
+            phi[rm_glob] = k
+            remaining[rm_glob] = False
+            k += 1
+            continue
         if pre is not None and pre[0] == k:
             cand = pre
             stats.stage2_overlapped += 1
@@ -959,23 +1110,34 @@ def partitioned_support(n: int, edges: np.ndarray, budget: int,
     round ("sup" snapshots).  A failed round (the ``"support"`` fault site)
     walks :func:`_retry_support_round`; a round's triples all exist before
     any is folded.  ``store`` keeps the working graph in a graph store
-    between rounds.  ``engine="perpart"`` and ``mesh`` raise
-    ``NotImplementedError`` (ROADMAP A12, A13).
+    between rounds.
+
+    ``engine="perpart"`` is the per-part seed baseline: every round
+    rebuilds the working graph and lists each part's NS on its own over
+    the full vertex space (the same sup, rounds and scans; no journal or
+    store, and ``restored`` raises).  ``mesh`` raises ``ValueError`` with
+    it, and ``NotImplementedError`` on the batched engine (ROADMAP A13).
     """
-    reject_unported(mesh=mesh)
-    if engine == "perpart":
-        raise NotImplementedError(
-            "engine='perpart' is not ported to repro_torch yet: ROADMAP A12 "
-            "(the per-part seed baseline)")
-    if engine != "batched":
-        raise ValueError(f"unknown engine {engine!r}")
     part_fn = _resolve_partitioner(partitioner, seed=partitioner_seed)
     edges = glib.canonical_edges(edges, n)
+    # as in the reference, a journal without a snapshot to restore is
+    # ignored by the per-part engine
+    _perpart_guard(engine, mesh=mesh, store=store,
+                   checkpointing=restored is not None)
+    reject_unported(mesh=mesh)
     m = len(edges)
     sup = np.zeros(m, dtype=np.int64)
     alive = np.ones(m, dtype=bool)
     stats = OocStats()
     cur_budget = budget
+    if engine == "perpart":
+        for cur_ids, sub_ids, sub_edges, _ in _perpart_rounds(
+                n, edges, cur_budget, part_fn, stats):
+            tris = list_triangles(glib.build_graph(n, sub_edges))
+            if len(tris):
+                # subgraph id -> current-graph id -> original id
+                np.add.at(sup, cur_ids[sub_ids][tris.reshape(-1)], 1)
+        return (sup, stats) if with_stats else sup
     if restored is not None:
         tree, meta = restored
         sup = tree["sup"].astype(np.int64)

@@ -16,8 +16,9 @@ Port of ``repro.core.faults``.  The injection sites are named once —
 * ``"chunk-read"`` / ``"chunk-write"`` — the graph store's chunk I/O in
   ``core.store.ChunkedDiskStore`` (context ``key``, ``chunk``, ``path``),
   before a chunk file is read or committed;
-* ``"maintain"`` — the maintenance steps, which have no hook in this port
-  yet (ROADMAP A11); the name is kept so plans stay portable.
+* ``"maintain"`` — the start of each single-edit step of
+  ``core.maintain.truss_maintain`` (context ``edit``, ``op``, ``u``,
+  ``v``), after the previous edit's phi was journaled.
 
 — and a test describes failures declaratively as a :class:`FaultPlan`:
 *at the 2nd stage-1 dispatch of round 3, raise a device OOM, twice*.  Rules

@@ -10,7 +10,10 @@ The port's copy of ``repro.core.graph``:
 * CSR of the oriented out-neighbourhoods with rows sorted by neighbour id,
   so membership tests are binary searches;
 * optionally, the arrays kept in a graph store (``core.store``) and
-  reloaded on access, so the out-of-core rounds need not hold them.
+  reloaded on access, so the out-of-core rounds need not hold them;
+* incremental edits without a rebuild (:meth:`Graph.remove_edges`,
+  :meth:`Graph.add_edges`), which reuse the ranks and splice or filter
+  the sorted arrays, for the out-of-core rounds and maintenance.
 """
 
 from __future__ import annotations
@@ -150,11 +153,12 @@ class Graph:
     def spill(self) -> None:
         """Move the arrays into the store and drop the host references.
 
-        A graph made by :meth:`remove_edges` carries a spill plan: filtered
-        arrays go through ``store.put_filtered`` (source chunks whose rows
-        are all kept are aliased, not rewritten) and the reused ``rank``
-        through ``store.alias`` (no write).  An array spilled once is never
-        rewritten; a reloaded copy is just dropped.
+        A graph made by :meth:`remove_edges` or :meth:`add_edges` carries a
+        spill plan: filtered arrays go through ``store.put_filtered`` and
+        spliced ones through ``store.put_inserted`` (source chunks that the
+        edit leaves whole are aliased, not rewritten), and the reused
+        ``rank`` through ``store.alias`` (no write).  An array spilled once
+        is never rewritten; a reloaded copy is just dropped.
         """
         if self._store is None:
             return
@@ -173,6 +177,8 @@ class Graph:
                 self._store.put(dst_key, arr)
             elif step[0] == "alias":
                 self._store.alias(dst_key, step[1], arr)
+            elif step[0] == "insert":  # ("insert", src_key, is_new_mask)
+                self._store.put_inserted(dst_key, step[1], step[2], arr)
             else:  # ("filter", src_key, keep_mask)
                 self._store.put_filtered(dst_key, step[1], step[2], arr)
             self._spilled.add(name)
@@ -203,6 +209,10 @@ class Graph:
         self._arrays = {}
         self._spilled = set()
         self._key = None
+
+    def subgraph(self, edge_mask: np.ndarray) -> "Graph":
+        """Graph induced by the kept edges (vertex ids preserved)."""
+        return build_graph(self.n, self.edges[edge_mask])
 
     def remove_edges(self, remove_mask: np.ndarray, *,
                      detach: bool = False) -> "Graph":
@@ -259,6 +269,91 @@ class Graph:
         )
 
 
+    def add_edges(self, new_edges: np.ndarray, *,
+                  detach: bool = False) -> "Graph":
+        """Splice new edges in without a rebuild (the mirror of
+        :meth:`remove_edges`).
+
+        ``rank`` is reused: every existing edge keeps its orientation and
+        the new edges are oriented by the same ranks.  The canonical order
+        of ``edges`` is kept by a searchsorted splice: old edge id ``i``
+        maps to ``i + (number of inserted keys below key_i)`` and the new
+        edges take the gaps; each CSR row takes its new entries the same
+        way (keys ``row * n + nbr``).  Only the k new entries are sorted:
+        O(n + m + k log k).
+
+        The pairs are canonicalized against ``self.n``; self loops,
+        duplicates and edges already present are dropped, and when nothing
+        is left ``self`` is returned.  A store-backed graph hands its
+        successor a spill plan of ``("insert", src_key, is_new)`` steps,
+        so its :meth:`spill` rewrites only the chunks a splice point falls
+        inside.  ``detach=True`` gives a plain in-memory graph instead.
+        """
+        ins = canonical_edges(new_edges, self.n)
+        if len(ins):
+            ins = ins[edge_id_lookup(self, ins[:, 0], ins[:, 1]) < 0]
+        if len(ins) == 0:
+            return self
+        n, m, k = self.n, self.m, len(ins)
+        old_keys = (self.edges[:, 0].astype(np.int64) * np.int64(n)
+                    + self.edges[:, 1])
+        ins_keys = ins[:, 0].astype(np.int64) * np.int64(n) + ins[:, 1]
+        # the keys are unique: inserted edge j lands at pos[j] + j, old edge
+        # i moves up by the inserted keys below it
+        pos = np.searchsorted(old_keys, ins_keys)
+        shift = np.searchsorted(ins_keys, old_keys)
+        new_id_old = np.arange(m, dtype=np.int64) + shift
+        new_id_ins = pos.astype(np.int64) + np.arange(k, dtype=np.int64)
+        edges = np.insert(self.edges, pos, ins, axis=0)
+        is_new = np.zeros(m + k, dtype=bool)
+        is_new[new_id_ins] = True
+        deg = self.deg.copy()
+        np.add.at(deg, ins[:, 0], 1)
+        np.add.at(deg, ins[:, 1], 1)
+        rank = self.rank
+        u_first = rank[ins[:, 0]] < rank[ins[:, 1]]
+        ins_src = np.where(u_first, ins[:, 0], ins[:, 1]).astype(Int)
+        ins_dst = np.where(u_first, ins[:, 1], ins[:, 0]).astype(Int)
+        src = np.insert(self.src, pos, ins_src)
+        dst = np.insert(self.dst, pos, ins_dst)
+        # the CSR entries are sorted by row * n + nbr already: sort the k
+        # new entries and splice them in at their searchsorted positions
+        out_deg_old = (self.indptr[1:] - self.indptr[:-1]).astype(np.int64)
+        rows_old = np.repeat(np.arange(n, dtype=np.int64), out_deg_old)
+        key_old = rows_old * np.int64(n) + self.nbrs
+        order = np.lexsort((ins_dst, ins_src))
+        e_src, e_dst = ins_src[order], ins_dst[order]
+        key_new = e_src.astype(np.int64) * np.int64(n) + e_dst
+        cpos = np.searchsorted(key_old, key_new)
+        nbrs = np.insert(self.nbrs, cpos, e_dst)
+        nbr_eid = np.insert(new_id_old[self.nbr_eid], cpos,
+                            new_id_ins[order]).astype(Int)
+        is_new_entry = np.zeros(len(nbrs), dtype=bool)
+        is_new_entry[cpos + np.arange(k, dtype=np.int64)] = True
+        counts = np.zeros(n + 1, dtype=np.int64)
+        counts[1:] = out_deg_old + np.bincount(
+            e_src.astype(np.int64), minlength=n)
+        indptr = np.cumsum(counts).astype(Int)
+        out_deg = indptr[1:] - indptr[:-1]
+        store = None if detach else self._store
+        plan = None
+        if store is not None and self._key is not None:
+            # deg, indptr and nbr_eid are recomputed: plain puts
+            plan = {
+                "edges": ("insert", f"{self._key}/edges", is_new),
+                "src": ("insert", f"{self._key}/src", is_new),
+                "dst": ("insert", f"{self._key}/dst", is_new),
+                "nbrs": ("insert", f"{self._key}/nbrs", is_new_entry),
+                "rank": ("alias", f"{self._key}/rank"),
+            }
+        return Graph(
+            n=n, edges=edges.astype(Int), deg=deg, rank=rank, src=src,
+            dst=dst, indptr=indptr, nbrs=nbrs, nbr_eid=nbr_eid,
+            max_out_deg=int(out_deg.max()) if n and len(edges) else 0,
+            store=store, spill_plan=plan,
+        )
+
+
 def build_graph(n: int, edges: np.ndarray, store=None) -> Graph:
     """Build the oriented CSR package from an edge list; ``store`` attaches
     a graph store (the graph stays resident until its first spill)."""
@@ -305,6 +400,21 @@ def edge_id_lookup(graph: Graph, a: np.ndarray, b: np.ndarray) -> np.ndarray:
         return np.full(key.shape, -1, Int)
     pos = np.clip(np.searchsorted(ekey, key), 0, len(ekey) - 1)
     return np.where(ekey[pos] == key, pos, -1).astype(Int)
+
+
+def neighborhood_subgraph(
+    graph: Graph, part_vertices: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """NS(P): every edge with at least one endpoint in P (paper Definition
+    4).  Returns ``(edge_ids, edges, internal_mask)``, ``internal_mask``
+    marking the edges with both endpoints in P (the internal edges)."""
+    in_part = np.zeros(graph.n, dtype=bool)
+    in_part[part_vertices] = True
+    u_in = in_part[graph.edges[:, 0]]
+    v_in = in_part[graph.edges[:, 1]]
+    edge_ids = np.nonzero(u_in | v_in)[0].astype(Int)
+    internal = (u_in & v_in)[edge_ids]
+    return edge_ids, graph.edges[edge_ids], internal
 
 
 def undirected_csr(graph: Graph) -> tuple[np.ndarray, np.ndarray]:
@@ -364,3 +474,18 @@ def incident_vertices(edges: np.ndarray) -> np.ndarray:
     if len(edges) == 0:
         return np.zeros(0, dtype=Int)
     return np.unique(edges.reshape(-1)).astype(Int)
+
+
+def clustering_coefficient(n: int, edges: np.ndarray) -> float:
+    """Global clustering coefficient, 3 * triangles / wedges (paper Table
+    6), from the host triangle support: integer sums, so the float equals
+    the JAX package's."""
+    g = build_graph(n, edges)
+    if g.m == 0:
+        return 0.0
+    from repro_torch.core.support import edge_support_np  # imports graph
+
+    tri3 = edge_support_np(g).sum()        # each triangle counted 3 times
+    d = g.deg.astype(np.int64)
+    wedges = (d * (d - 1) // 2).sum()
+    return float(tri3) / float(wedges) if wedges else 0.0

@@ -60,8 +60,6 @@ from repro_torch.kernels.frontier_peel.ref import BIG
 _NOT_PORTED = {
     "mesh": "A13 (distributed mesh paths)",
     "mesh_axes": "A13 (distributed mesh paths)",
-    "edits": "A11 (incremental maintenance)",
-    "phi0": "A11 (incremental maintenance)",
 }
 
 
@@ -393,6 +391,39 @@ def support_from_triangles(tris, alive, m: int) -> torch.Tensor:
     return sup[:m]
 
 
+def peel_recompute(tris, edge_alive0, *, device=None):
+    """Global-iterate baseline (the MapReduce stand-in of the paper's Table
+    4): every round recounts every support from the whole triangle list
+    (:func:`support_from_triangles`), removes all the alive edges with
+    ``sup <= k - 2``, or raises k to ``max(k + 1, min sup + 2)`` when none
+    is.  Deliberately not frontier-compacted: its O(T) recount every round
+    is what the comparison measures.  One ``host_read`` a round, and one
+    more that finds no edge alive.
+
+    Host arrays or tensors in (rows on the drop slot m are inert); returns
+    phi (m,) int32 on ``device``.
+    """
+    dev = resolve_device(device)
+    tris = _put(tris, torch.int64, dev)
+    alive = _put(edge_alive0, torch.bool, dev)
+    m = int(alive.shape[0])
+    phi = torch.zeros(m, dtype=torch.int32, device=dev)
+    k = 2
+    while True:
+        sup = support_from_triangles(tris, alive, m)
+        rm = alive & (sup <= k - 2)
+        any_alive, any_rm, min_sup = host_read(
+            alive.any(), rm.any(), torch.where(alive, sup, BIG).min())
+        if not any_alive:
+            break
+        if any_rm:
+            phi = torch.where(rm, k, phi)
+            alive = alive & ~rm
+        else:
+            k = max(k + 1, min_sup + 2)
+    return phi
+
+
 # ---------------------------------------------------------------------------
 # batched local peels (out-of-core engine)
 # ---------------------------------------------------------------------------
@@ -599,15 +630,23 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
     change no result, add the store's counters to ``OocStats``, and warn
     and are ignored on the in-memory route.
 
+    ``edits`` (a ``core.maintain.EditBatch`` or ``(op, u, v)`` sequence)
+    routes the call through incremental maintenance instead: the pre-edit
+    graph ``(n, edges)`` is decomposed with the same routing arguments, or
+    its trussness taken from ``phi0`` (indexed by the canonical pre-edit
+    edge list), and ``truss_maintain`` applies the edits.  The returned phi
+    indexes the canonical post-edit edge list; ``store`` and the journal
+    arguments go to the maintenance.  ``phi0`` without ``edits`` raises.
+
     ``kernel``: "auto" only — the fused round kernel on CUDA, its plain
-    version on the CPU (out-of-core engines; the in-memory engines have
-    none).  ``device``: None means the CUDA card (raises without CUDA);
-    pass "cpu" for the plain versions on the host.  ``with_stats`` also
-    returns a :class:`PeelStats` (frontier), None (dense) or an
-    ``OocStats`` (out-of-core).  The remaining arguments of the JAX entry
-    point are not ported yet and raise ``NotImplementedError`` when set.
+    version on the CPU (out-of-core engines and maintenance; the in-memory
+    engines have none).  ``device``: None means the CUDA card (raises
+    without CUDA); pass "cpu" for the plain versions on the host.
+    ``with_stats`` also returns a :class:`PeelStats` (frontier), None
+    (dense) or an ``OocStats`` (out-of-core and maintenance).  ``mesh`` and
+    ``mesh_axes`` are not ported yet and raise ``NotImplementedError``.
     """
-    reject_unported(mesh=mesh, mesh_axes=mesh_axes, edits=edits, phi0=phi0)
+    reject_unported(mesh=mesh, mesh_axes=mesh_axes)
     check_kernel(kernel)
     dev = resolve_device(device)
     if memory_budget is not None and memory_budget <= 0:
@@ -618,6 +657,22 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
         raise ValueError(
             f"host_memory_budget must be a positive byte count, got "
             f"{host_memory_budget!r}")
+    if phi0 is not None and edits is None:
+        raise ValueError("phi0= is only meaningful together with edits=")
+    if edits is not None:
+        from repro_torch.core.maintain import truss_maintain
+
+        if phi0 is None:
+            phi0 = truss_decompose(
+                n, edges, engine=engine, memory_budget=memory_budget,
+                partitioner=partitioner, partitioner_seed=partitioner_seed,
+                kernel=kernel, max_retries=max_retries, device=dev)
+        res = truss_maintain(
+            (n, np.asarray(edges)), phi0, edits, kernel=kernel, store=store,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            resume=resume, device=dev)
+        phi = np.asarray(res.phi, dtype=np.int64)
+        return (phi, res.stats) if with_stats else phi
     g = build_graph(n, edges)
     if g.m == 0:
         phi = np.zeros(0, np.int64)

@@ -15,7 +15,9 @@ triangle list off the host between partition rounds.  Two stores:
   holds at once.  Chunk files are immutable and refcounted, so
   :meth:`~ChunkedDiskStore.put_filtered` (the spill side of
   ``Graph.remove_edges``) rewrites only the chunks that lost rows and
-  aliases the others, and a reused ``rank`` costs no write at all.  Every
+  aliases the others, :meth:`~ChunkedDiskStore.put_inserted` (the spill
+  side of ``Graph.add_edges``) rewrites only the chunks a new row falls
+  inside, and a reused ``rank`` costs no write at all.  Every
   chunk is committed by ``checkpoint.manager.atomic_file_write`` (tmp +
   rename) behind the ``"chunk-write"`` fault site, and read behind
   ``"chunk-read"``.
@@ -171,6 +173,13 @@ class GraphStore:
     def alias(self, dst: str, src: str, arr: np.ndarray) -> None:
         """Register ``arr == get(src)`` under ``dst`` without a rewrite
         when the backend supports it (``rank`` reuse across rounds)."""
+        self.put(dst, arr)
+
+    def put_inserted(self, dst: str, src: str, is_new: np.ndarray,
+                     arr: np.ndarray) -> None:
+        """Register ``arr`` under ``dst`` where ``arr[~is_new] == get(src)``
+        (the spill of a ``Graph.add_edges`` successor); a chunked store
+        aliases the source chunks that no insertion point falls inside."""
         self.put(dst, arr)
 
     def get_chunks(self, key: str):
@@ -484,6 +493,68 @@ class ChunkedDiskStore(GraphStore):
                 self._file_refs[c.path] = self._file_refs.get(c.path, 0) + 1
             self._manifests[dst] = _Manifest(
                 dtype=src_man.dtype, trail=src_man.trail, rows=src_man.rows,
+                chunks=chunks)
+
+    def put_inserted(self, dst: str, src: str, is_new: np.ndarray,
+                     arr: np.ndarray) -> None:
+        """Chunk-wise splice: ``arr[~is_new] == get(src)``, the new rows at
+        the ``is_new`` positions.  A source chunk with no insertion point
+        inside it is aliased (no write); inserted runs and the chunks a
+        splice point falls inside are written fresh, in chunks of this
+        store's size.  A source that does not match (absent, another row
+        count, dtype or row shape) falls back to :meth:`put`."""
+        with self._lock:
+            src_man = self._manifests.get(src)
+        is_new = np.asarray(is_new, dtype=bool)
+        arr = np.ascontiguousarray(arr)
+        trail = tuple(int(d) for d in arr.shape[1:])
+        if (src_man is None or len(is_new) != len(arr)
+                or int((~is_new).sum()) != src_man.rows
+                or str(arr.dtype) != src_man.dtype
+                or trail != src_man.trail):
+            self.put(dst, arr)
+            return
+        old_pos = np.nonzero(~is_new)[0]      # where each source row landed
+        row_bytes = int(arr.itemsize * int(np.prod(trail, dtype=np.int64)))
+        rows_per = max(1, self.chunk_bytes // max(row_bytes, 1))
+        self.release(dst)
+        chunks: List[_Chunk] = []
+        new_refs: List[str] = []
+
+        def write_fresh(part: np.ndarray) -> None:
+            for start in range(0, len(part), rows_per):
+                piece = part[start:start + rows_per]
+                payload = piece.tobytes()
+                with self._lock:
+                    path = self._next_path()
+                self._write_chunk(path, payload, key=dst, index=len(chunks))
+                chunks.append(_Chunk(path=path, key=dst, index=len(chunks),
+                                     rows=len(piece), nbytes=len(payload)))
+
+        cursor = 0    # next row of arr not yet registered
+        off_old = 0   # source rows consumed
+        for c in src_man.chunks:
+            lo = int(old_pos[off_old])
+            hi = int(old_pos[off_old + c.rows - 1]) + 1
+            if lo > cursor:                  # new rows before this chunk
+                write_fresh(arr[cursor:lo])
+            if hi - lo == c.rows:            # no insertion inside: alias
+                chunks.append(_Chunk(path=c.path, key=dst, index=len(chunks),
+                                     rows=c.rows, nbytes=c.nbytes))
+                new_refs.append(c.path)
+            else:
+                write_fresh(arr[lo:hi])
+            cursor = hi
+            off_old += c.rows
+        if cursor < len(arr):
+            write_fresh(arr[cursor:])
+        with self._lock:
+            for path in new_refs:
+                self._file_refs[path] = self._file_refs.get(path, 0) + 1
+            for c in chunks:
+                self._file_refs.setdefault(c.path, 1)
+            self._manifests[dst] = _Manifest(
+                dtype=src_man.dtype, trail=trail, rows=len(arr),
                 chunks=chunks)
 
     # -- read side -----------------------------------------------------------

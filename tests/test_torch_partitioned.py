@@ -150,17 +150,18 @@ def test_split_bucket_lanes_equal():
 
 
 def test_unported_support_arguments_raise():
-    """``mesh`` and ``engine="perpart"`` still raise naming their ROADMAP
-    item.  ``store=`` and ``partitioner="locality"`` have been ported since
-    and give the reference's supports and phi."""
+    """``mesh`` still raises naming its ROADMAP item.  ``store=``,
+    ``partitioner="locality"`` and ``engine="perpart"`` have been ported
+    since and give the reference's supports and phi."""
     from repro.core.store import InMemoryStore as JInMemoryStore
     from repro_torch.core.store import InMemoryStore
 
     name, n, edges = CORPUS[0]
-    for kw, item in ((dict(mesh=object()), "A13"),
-                     (dict(engine="perpart"), "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            tbu.partitioned_support(n, edges, 64, **kw)
+    with pytest.raises(NotImplementedError, match="A13"):
+        tbu.partitioned_support(n, edges, 64, mesh=object())
+    np.testing.assert_array_equal(
+        tbu.partitioned_support(n, edges, 64, engine="perpart"),
+        jbu.partitioned_support(n, edges, 64, engine="perpart"))
     with InMemoryStore() as store, JInMemoryStore() as jstore:
         np.testing.assert_array_equal(
             tbu.partitioned_support(n, edges, 64, store=store),

@@ -247,13 +247,14 @@ def test_ooc_stats_round_trip_keeps_floats():
     assert back == st
     assert isinstance(back.round_build_s, float) and back.round_build_s == 1.25
     assert isinstance(back.rounds, int)
-    # the reference's counters are all fields of the port's, but for the
-    # maintenance ones (ROADMAP A11)
+    # the reference's counters are all fields of the port's
     shared = set(d) & set(jbu.OocStats().as_dict())
     assert {"devices", "sharded_rounds", "retries", "degraded",
             "checkpoints", "resumed_round", "chunk_reads", "chunk_writes",
             "bytes_spilled", "prefetch_hits", "prefetch_misses",
-            "tri_spill_rows", "tri_reload_peak_rows"} <= shared
+            "tri_spill_rows", "tri_reload_peak_rows", "edits_applied",
+            "maintain_levels", "affected_edges"} <= shared
+    assert set(jbu.OocStats().as_dict()) <= set(d)
 
 
 @pytest.mark.parametrize("engine", ["bottom-up", "top-down"])

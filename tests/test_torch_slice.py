@@ -348,12 +348,13 @@ def test_moe_configs_raise(arch):
     dict(phi0=np.zeros(3)), dict(partitioner="locality", engine="bottom-up"),
     dict(engine="top-down")])
 def test_unported_arguments_raise(kw, tmp_path):
-    """Unported arguments raise naming their ROADMAP item.  Six cases have
+    """Unported arguments raise naming their ROADMAP item.  Eight cases have
     been ported since and check what replaced the error, as in the
     reference: on the in-memory route ``checkpoint_dir``, ``store`` and
     ``host_memory_budget`` warn and are ignored and ``resume`` is ignored;
     ``engine="top-down"`` and ``partitioner="locality"`` give the
-    reference's phi."""
+    reference's phi; an edit with an unknown op, and ``phi0`` without
+    ``edits``, raise ``ValueError`` (maintenance)."""
     e = np.array([[0, 1], [1, 2], [0, 2]])
     want = jpeel.truss_decompose(3, e, **{
         k: v for k, v in kw.items() if k in ("engine", "partitioner")})
@@ -367,6 +368,12 @@ def test_unported_arguments_raise(kw, tmp_path):
             jpeel.truss_decompose(3, e, **kw)
         with pytest.warns(UserWarning, match="in-memory"):
             got = tpeel.truss_decompose(3, e, device="cpu", **kw)
+    elif "edits" in kw or "phi0" in kw:
+        with pytest.raises(ValueError):
+            jpeel.truss_decompose(3, e, **kw)
+        with pytest.raises(ValueError, match="phi0|insert.*delete"):
+            tpeel.truss_decompose(3, e, device="cpu", **kw)
+        return
     elif ("resume" in kw or kw == dict(engine="top-down")
           or "partitioner" in kw):
         got = tpeel.truss_decompose(3, e, device="cpu", **kw)

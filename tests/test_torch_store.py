@@ -7,7 +7,7 @@ sweep, both fault sites, torn-chunk detection, the graph spill, counter
 absorption, the journal's charge, chunk streaming.  Where a case's outcome
 is deterministic, the same operations run on the reference's store too and
 the results and write counters must be equal.  (The insertion splice,
-``put_inserted``, is left to incremental maintenance, ROADMAP A11.)
+``put_inserted``, is held to the reference in ``test_torch_add_edges.py``.)
 Every store is opened in a ``with`` block, so no prefetch thread outlives
 its test.
 """

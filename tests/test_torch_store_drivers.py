@@ -172,7 +172,7 @@ def test_store_arguments_validated(tmp_path):
         with pytest.raises(ValueError, match="budget"):
             ttd.top_down_decompose(3, e, store=store, device="cpu")
     with tstore.InMemoryStore() as store:
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        with pytest.raises(ValueError, match="store= requires the batched"):
             tbu.partitioned_support(3, e, 64, engine="perpart", store=store)
 
 
