@@ -102,6 +102,30 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    8e. the per-part seed baseline, ``bottom_up_decompose(engine=
        "perpart")``, on 5f's graph: phi equal to the rmat13 digest, rounds
        and scans equal to the JAX package's;
+9. after 8e: the mesh paths (``core.distributed`` on ``torch.distributed``),
+   each through ``run_phase``:
+   9a. a one-rank NCCL process group in this process (a ``HashStore``, no
+       network) and ``DeviceMesh``es of shape (1,) and (1, 1): phase 4's
+       bottom-up call with ``mesh=``, phi equal to phase 4a's and the
+       digest, ``OocStats.devices`` 1, ``sharded_rounds`` above 0, B1
+       launched; budgeted top-down on 5f's graph with ``mesh_axes=("data",
+       "tri")``, phi equal to the rmat13 digest; 8a's 64 edits with the
+       mesh, equal to 8a's digest; B1 is then checked and timed on the
+       largest call the mesh path gave it;
+   9b. two child processes (``sys.executable``, importing only
+       ``repro_torch``), one gloo group on the one card (NCCL refuses two
+       ranks on one GPU): on 5f's graph, bottom-up with a ("data",) mesh of
+       2, budgeted top-down on a (1, 2) ("data", "tri") mesh,
+       ``peel_classes_sharded`` on the padded triangle list, and bottom-up
+       under ``MESH_DROP_RULE`` (the dispatch and both lane splits fail, so
+       the ladder drops the mesh); every phi equal to the rmat13 digest on
+       both ranks, ``devices`` 2, B1 launched on each rank, ``degraded``
+       at least 1, the ranks' counters equal; a rank that does not finish
+       within the timeout is killed and fails the phase;
+   9c. ``ring_support_dense`` and ``allgather_support_dense`` on 5b's ER
+       core at 9a's one rank, and on an ER core of 512 vertices at 9b's two:
+       S equal to B2's S on every edge, zero off them;  the collective
+       calls (``distributed.COLLECTIVES``) are printed and must be positive;
 6. phi of every graph of phases 3-5 (4b, 4c and 5d included) against
    digests of the JAX package's answer, and the paper's Figure-2 graph
    against the port's serial oracle;
@@ -114,13 +138,13 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    how far the plain path's logits move with a window off by one key and
    with no window at all, as a measure of what that limit can see.
 
-Three main paths: the truss path (phases 3-5d), the maintenance path (8a)
-and the LM path (phase 7); 5e-5h and 8b-8e read their own launches, each
-through ``run_phase``.
+Four main paths: the truss path (phases 3-5d), the maintenance path (8a),
+the mesh path (9a) and the LM path (phase 7); 5e-5h, 8b-8e, 9b and 9c read
+their own launches, each through ``run_phase``.
 Every launch counter is set to 0 just before each and read just after it,
 and each kernel of the path must have launched (B1 and B2 on the truss
-path, B1 on the maintenance path, B3 on the LM path; no model path reaches
-B4).  The kernels are then
+path, B1 on the maintenance and the mesh paths, B3 on the LM path; no
+model path reaches B4).  The kernels are then
 checked and timed again on the largest inputs their path gave them (B3:
 the largest of its global and of its windowed calls).  The line before
 the last is a JSON object listing every kernel; the last line is
@@ -1331,8 +1355,262 @@ def perpart(bottom_up_decompose, estimate_working_set, build_graph, rmat,
     return got
 
 
+# phase 9b's children: two ranks of one gloo group on the one card (NCCL
+# refuses two ranks on one GPU), each running the same calls on R-MAT scale
+# 13 and the dense supports on an ER core of 512 vertices.  They import
+# only repro_torch; each prints one "MESH_RESULT {json}" line.
+MESH_CHILD = r"""
+import hashlib, json, sys, time
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.core import distributed as D
+from repro_torch.core import faults
+from repro_torch.core.graph import build_graph
+from repro_torch.core.peel import estimate_working_set, truss_decompose
+from repro_torch.core.support import list_triangles, support_from_triangle_list
+from repro_torch.data.graphgen import erdos_renyi, rmat
+from repro_torch.kernels.frontier_peel import kernel as fk
+from repro_torch.kernels.triangle_count import kernel as tk
+
+rendezvous, rank, plan = sys.argv[1], int(sys.argv[2]), json.loads(sys.argv[3])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                        rank=rank, world_size=2)
+data = init_device_mesh("cuda", (2,), mesh_dim_names=("data",))
+data_tri = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "tri"))
+n, e = rmat(13, 8, seed=5)
+g = build_graph(n, e)
+budget = estimate_working_set(g) // 16
+out = {}
+
+
+def run(tag, fn):
+    torch.cuda.synchronize()
+    l0, c0, t0 = fk.LAUNCHES, D.COLLECTIVES, time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    out[tag] = dict(wall_s=round(time.perf_counter() - t0, 3),
+                    B1=fk.LAUNCHES - l0, collectives=D.COLLECTIVES - c0)
+    return res
+
+
+def record(tag, phi, st=None):
+    out[tag]["sha256"] = hashlib.sha256(
+        np.asarray(phi).astype(np.int64).tobytes()).hexdigest()
+    if st is not None:
+        out[tag].update({k: int(getattr(st, k)) for k in (
+            "devices", "sharded_rounds", "rounds", "retries", "degraded")})
+
+
+ooc = dict(memory_budget=budget, with_stats=True)
+record("bottom-up", *run("bottom-up", lambda: truss_decompose(
+    n, e, engine="bottom-up", mesh=data, **ooc)))
+record("top-down", *run("top-down", lambda: truss_decompose(
+    n, e, engine="top-down", mesh=data_tri, mesh_axes=("data", "tri"),
+    **ooc)))
+tris = list_triangles(g)
+sup = support_from_triangle_list(tris, g.m)
+record("peel_classes_sharded", run("peel_classes_sharded", lambda:
+       D.peel_classes_sharded(data, sup, D.pad_triangles(tris, g.m, 2),
+                              np.ones(g.m, bool)).cpu()))
+rule = faults.FaultRule(kind="oom", **plan)
+with faults.active(faults.FaultPlan([rule])) as active_plan:
+    record("mesh-drop", *run("mesh-drop", lambda: truss_decompose(
+        n, e, engine="bottom-up", mesh=data, **ooc)))
+out["mesh-drop"]["fired"] = len(active_plan.log)
+er = torch.as_tensor(erdos_renyi(512, 19_600, seed=5), device="cuda")
+A = torch.zeros((512, 512), device="cuda")
+A[er[:, 0], er[:, 1]] = A[er[:, 1], er[:, 0]] = 1
+ring = run("ring_support_dense", lambda: D.ring_support_dense(data, A))
+gath = run("allgather_support_dense",
+           lambda: D.allgather_support_dense(data, A))
+s_b2 = tk.triangle_count(A.to(torch.uint8), symmetric=True)
+on = A > 0
+for tag, S in (("ring_support_dense", ring),
+               ("allgather_support_dense", gath)):
+    out[tag]["equals_b2_on_edges"] = bool(torch.equal(S[on].int(), s_b2[on]))
+    out[tag]["zero_off_edges"] = bool((S[~on] == 0).all())
+print("MESH_RESULT " + json.dumps(out), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+# 9b's injected OOM: the stage-1 dispatch and both of its lane splits
+# (max_retries = 2) fail, so the ladder drops the mesh and the round runs
+# single-device on each rank
+MESH_DROP_RULE = dict(site="dispatch", where={"stage": 1}, times=3)
+
+
+def dense_check(torch, tk, S, A, where: str) -> None:
+    """S of a dense-support route against B2's on the same adjacency:
+    equal on every edge, zero off the edges."""
+    on = A > 0
+    want = tk.triangle_count(A.to(torch.uint8), symmetric=True)
+    if not torch.equal(S[on].int(), want[on]) or bool((S[~on] != 0).any()):
+        raise AssertionError(f"{where}: S differs from B2's")
+
+
+def mesh_one_rank(torch, dist, D, tk, truss_decompose, truss_maintain,
+                  estimate_working_set, build_graph, rmat, run_phase,
+                  phase_launches, n15, e15, budget, phi15, phi15_in,
+                  n_er, e_er, dev) -> dict:
+    """Phases 9a and 9c on a one-rank NCCL mesh in this process (a
+    ``HashStore``, no network): bottom-up on phase 4's graph and budget,
+    budgeted top-down on 5f's graph over a (1, 1) ("data", "tri") mesh,
+    8a's 64 edits, then the two dense supports on 5b's ER core.  Every
+    collective runs at this mesh size too."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        data = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        data_tri = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "tri"))
+        c0 = D.COLLECTIVES
+        tag = "9a mesh bottom-up rmat15"
+        phi, st = run_phase(tag, lambda: truss_decompose(
+            n15, e15, engine="bottom-up", memory_budget=budget, mesh=data,
+            with_stats=True, device=dev))
+        out = dict(bottom_up=dict(
+            devices=st.devices, sharded_rounds=st.sharded_rounds,
+            rounds=st.rounds, padding_waste=round(st.padding_waste, 4),
+            collectives=D.COLLECTIVES - c0,
+            launches=phase_launches[tag]["B1"]))
+        say(f"[9a] {out['bottom_up']}; OocStats {st}")
+        if not np.array_equal(phi, phi15):
+            raise AssertionError("9a: the mesh bottom-up phi differs from "
+                                 "phase 4a's")
+        check_digest("rmat15", phi)
+        if (st.devices, st.sharded_rounds > 0,
+                out["bottom_up"]["launches"] > 0) != (1, True, True):
+            raise AssertionError(f"9a: {out['bottom_up']}")
+        n13, e13 = rmat(13, 8, seed=5)
+        b13 = estimate_working_set(build_graph(n13, e13)) // 16
+        c0 = D.COLLECTIVES
+        tag = "9a mesh budgeted top-down rmat13"
+        phi, st = run_phase(tag, lambda: truss_decompose(
+            n13, e13, engine="top-down", memory_budget=b13, mesh=data_tri,
+            mesh_axes=("data", "tri"), with_stats=True, device=dev))
+        out["top_down"] = dict(devices=st.devices,
+                               sharded_rounds=st.sharded_rounds,
+                               collectives=D.COLLECTIVES - c0,
+                               launches=phase_launches[tag]["B1"])
+        say(f"[9a] top-down {out['top_down']}")
+        check_digest("rmat13", phi)
+        if st.sharded_rounds == 0 or out["top_down"]["launches"] == 0:
+            raise AssertionError(f"9a: top-down {out['top_down']}")
+        c0 = D.COLLECTIVES
+        tag = "9a mesh maintain b=64 rmat15"
+        res = run_phase(tag, lambda: truss_maintain(
+            (n15, e15), phi15_in, edit_batch(n15, e15, 64), mesh=data,
+            device=dev))
+        out["maintain"] = dict(collectives=D.COLLECTIVES - c0,
+                               launches=phase_launches[tag]["B1"])
+        check_maint("9a maintain b=64", res, MAINT_DIGESTS["8a_b64"])
+        say(f"[9a] maintenance {out['maintain']}")
+        # 9c: the dense supports on 5b's ER core, against B2
+        A = torch.zeros((n_er, n_er), device=dev)
+        er = torch.as_tensor(e_er, device=dev)
+        A[er[:, 0], er[:, 1]] = A[er[:, 1], er[:, 0]] = 1
+        for name, fn in (("ring", D.ring_support_dense),
+                         ("allgather", D.allgather_support_dense)):
+            c0 = D.COLLECTIVES
+            S = run_phase(f"9c {name}_support_dense er2048",
+                          lambda: fn(data, A))
+            dense_check(torch, tk, S, A, f"9c {name} at one rank")
+            out[f"{name}_collectives"] = D.COLLECTIVES - c0
+        out["collectives"] = D.COLLECTIVES
+        say(f"[9c] ring and allgather S equal B2's S on every edge of "
+            f"er2048, zero off them; collective calls over 9a-9c "
+            f"{D.COLLECTIVES}")
+        if D.COLLECTIVES <= 0:
+            raise AssertionError("9a-9c ran no collective")
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_two_ranks(run_phase, timeout_s: int = 420) -> dict:
+    """Phase 9b (and 9c at two ranks): two child processes, one gloo group
+    on the one card, run ``MESH_CHILD``; both must end within ``timeout_s``
+    (else both are killed and the phase fails), each phi must equal the
+    rmat13 digest and the other rank's, the dispatches must span 2 devices
+    with B1 launched on each rank, the injected plan must reach the
+    mesh-drop rung, and both dense supports must equal B2's S."""
+    want = DIGESTS["rmat13"]["sha256"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", MESH_CHILD, os.path.join(d, "rendezvous"),
+             str(rank), json.dumps(MESH_DROP_RULE)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for rank in (0, 1)]
+
+        def wait():
+            deadline = time.perf_counter() + timeout_s
+            outs = []
+            try:
+                for p in procs:
+                    outs.append(p.communicate(
+                        timeout=max(1.0, deadline - time.perf_counter())))
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            return outs
+
+        try:
+            outs = run_phase("9b two ranks on one card rmat13", wait)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"9b: the ranks did not finish within "
+                                 f"{timeout_s} s (killed)")
+    ranks = []
+    for rank, (p, (so, se)) in enumerate(zip(procs, outs)):
+        line = [ln for ln in so.splitlines() if ln.startswith("MESH_RESULT ")]
+        if p.returncode != 0 or not line:
+            raise AssertionError(f"9b: rank {rank} exited {p.returncode}: "
+                                 f"{so[-800:]} {se[-3000:]}")
+        ranks.append(json.loads(line[-1].split(" ", 1)[1]))
+        say(f"[9b] rank {rank}: {ranks[-1]}")
+    for rank, res in enumerate(ranks):
+        for tag in ("bottom-up", "top-down", "peel_classes_sharded",
+                    "mesh-drop"):
+            if res[tag]["sha256"] != want:
+                raise AssertionError(f"9b: rank {rank}'s {tag} phi differs "
+                                     f"from the rmat13 digest")
+            if res[tag]["B1"] == 0:
+                raise AssertionError(f"9b: rank {rank}'s {tag} never "
+                                     f"launched B1")
+        for tag in ("bottom-up", "top-down"):
+            if res[tag]["devices"] != 2 or res[tag]["sharded_rounds"] == 0:
+                raise AssertionError(f"9b: rank {rank}'s {tag}: "
+                                     f"{res[tag]}")
+        if res["mesh-drop"]["degraded"] < 1:
+            raise AssertionError(f"9b: rank {rank}: the plan took no "
+                                 f"mesh drop: {res['mesh-drop']}")
+        for tag in ("ring_support_dense", "allgather_support_dense"):
+            if not (res[tag]["equals_b2_on_edges"]
+                    and res[tag]["zero_off_edges"]):
+                raise AssertionError(f"9b: rank {rank}'s {tag} differs from "
+                                     f"B2's S")
+    keys = ("sha256", "devices", "sharded_rounds", "rounds", "retries",
+            "degraded")
+    for tag in ("bottom-up", "top-down", "mesh-drop"):
+        a, b = ({k: r[tag][k] for k in keys} for r in ranks)
+        if a != b:
+            raise AssertionError(f"9b: the ranks disagree on {tag}: {a} {b}")
+    return dict(ranks=ranks)
+
+
 def main(argv) -> int:
     import torch
+    import torch.distributed as tdist
     from torch.autograd import DeviceType
 
     if not torch.cuda.is_available():
@@ -1355,6 +1633,7 @@ def main(argv) -> int:
     from repro_torch.core.peel import (estimate_working_set, peel_recompute,
                                        truss_decompose)
     from repro_torch.core.bottom_up import bottom_up_decompose
+    from repro_torch.core import distributed as rdist
     from repro_torch.core.store import ChunkedDiskStore
     from repro_torch.core.support import edge_support, list_triangles
     from repro_torch.core.top_down import top_down_decompose
@@ -1837,6 +2116,47 @@ def main(argv) -> int:
         raise AssertionError("phases 8a-8e launched B2, B3 or B4")
     say(f"[8a-8e] {json.dumps(maint)}")
 
+    # -- phase 9: the mesh paths: one NCCL rank here, two gloo ranks --------
+    zero_counts()
+    pmesh = b1_probe(torch, fk)
+    mesh = mesh_one_rank(torch, tdist, rdist, tk, truss_decompose,
+                         truss_maintain, estimate_working_set, build_graph,
+                         rmat, run_phase, phase_launches, n15, e15, budget,
+                         phi15, phi15, 2048, e_er, dev)
+    mesh_host_ms = pmesh.close()
+    mesh_tags = [t for t in phase_launches if t.startswith("9a")]
+    mesh_launches = sum(phase_launches[t]["B1"] for t in mesh_tags)
+    if fk.LAUNCHES != mesh_launches or len(pmesh.events) != mesh_launches:
+        raise AssertionError("9a: launch counters disagree with the calls "
+                             "seen")
+    mesh_rows = b1_rows(torch, pmesh)
+    (sup, alive, rm, tris, n_rows), _ = pmesh.largest[None]
+    args = (sup, alive, rm, tris)
+    B, E, T = sup.shape[0], sup.shape[1], tris.shape[1]
+    rw = check_b1_live(torch, fk, fref, args, n_rows,
+                       f"on 9a's largest call (B={B} E={E} T={T})")
+    t_out, n_out = torch.empty_like(tris), torch.empty_like(n_rows)
+    b1_mesh = dict(
+        launches=mesh_launches, shape=[B, E, T],
+        max_abs_err=rw.pop("max_abs_err"),
+        ms=time_ms(torch, lambda: fk.fused_round_live(
+            *args, n_rows, t_out, n_out), 50),
+        plain_ms=time_ms(torch, lambda: fref.fused_round_live(
+            *args, n_rows), 10),
+        bound_ms=b1_bound_ms(B, E, rw["rows_read"], rw["rows_written"]),
+        **rw, total_host_inclusive_ms=mesh_host_ms,
+        total_bound_ms=mesh_rows["bound_ms"],
+        path_rows_read=mesh_rows["rows_read"],
+        path_rows_written=mesh_rows["rows_written"])
+    if profile:
+        b1_mesh["total_ms"] = sum(
+            ns / 1e6 for t in mesh_tags
+            for nm, (ns, _) in phase_trace[t].items() if B1_TRACE_NAME in nm)
+    say(f"[9a] B1 over the mesh path: {b1_mesh}")
+    del sup, alive, rm, tris, args, t_out, pmesh
+    mesh["two_ranks"] = mesh_two_ranks(run_phase)
+    say(f"[9a-9c] {json.dumps(mesh)}")
+
     # -- phase 6: digests -----------------------------------------------------
     for name, phi in (("rmat17", phi17), ("rmat15", phi15),
                       ("rmat15", phi15_bu), ("rmat15", phi15_loc),
@@ -1948,10 +2268,12 @@ def main(argv) -> int:
         name="frontier_peel.fused_round_live", route="cuda",
         source="src/repro_torch/csrc/frontier_peel.cu",
         replaces="src/repro/kernels/frontier_peel/kernel.py:115",
-        launches=launches["frontier_peel"] + maint_launches,
+        launches=launches["frontier_peel"] + maint_launches + mesh_launches,
         launches_by_path={"truss (3-5d)": launches["frontier_peel"],
-                          "maintenance (8a)": maint_launches},
-        max_abs_err=max(err, b1_maint["max_abs_err"]),
+                          "maintenance (8a)": maint_launches,
+                          "mesh (9a)": mesh_launches},
+        max_abs_err=max(err, b1_maint["max_abs_err"],
+                        b1_mesh["max_abs_err"]),
         ms=time_ms(torch, lambda: fk.fused_round_live(
             *args, n_rows, t_out, n_out), 20),
         plain_ms=time_ms(torch, lambda: fref.fused_round_live(
@@ -1964,6 +2286,7 @@ def main(argv) -> int:
         path_rows_read=b1_path["rows_read"],
         path_rows_written=b1_path["rows_written"],
         path_padded_rows=b1_path["padded_rows"], maintenance=b1_maint,
+        mesh=b1_mesh,
         design=B1_DESIGN, build=b1b2["frontier_peel"]))
     say(f"[truss path] B1 on the path's largest call B={B} E={E} T={T} "
         f"n_rows {n_rows.tolist()[:4]}: equal (rows read {rw['rows_read']}, "

@@ -22,7 +22,8 @@ order and leaf paths join keys and indices with ``/`` (``"sup"``,
 package restores the other's snapshots.  Tensor leaves are copied to the
 host; a bf16 tensor is stored as its 16-bit pattern with dtype
 ``"bfloat16"`` and restored as a bf16 tensor.  The JAX package's
-``shardings=`` (elastic re-shard onto a mesh) is not ported (ROADMAP A13).
+``shardings=`` (elastic re-shard onto a mesh) is not ported: only the LM
+side would use it (ROADMAP A14, training).
 """
 
 from __future__ import annotations

@@ -51,8 +51,17 @@ the full vertex space, listed on the host and peeled by the in-memory
 engines (``peel.peel_classes`` / ``peel.peel_threshold``), with no journal,
 store or retry ladder.
 
-Not ported yet (ROADMAP A13): the mesh paths with the ladder's mesh-drop
-rung.
+With a ``mesh`` (a ``torch.distributed`` device mesh; every rank runs the
+same call on the same inputs) each stage-1 bucket's lanes are split over
+the lane axis and every stage-2 level peel is triangle-sharded
+(``core.distributed``); the batches are packed waste-aware for the lane
+count (``partition.build_partition_batch``'s ``lane_multiple`` and shape
+ladder).  The ranks agree on every dispatch's outcome, so they take the
+same rung of a ladder; its mesh-drop rung finishes the run single-device
+on every rank, and the ranks still agree on each of those dispatches, so
+they stay in step to the end.  Rank 0 alone writes the journal (its clock
+decides a time-gated snapshot for every rank); every rank reads it on
+resume, after a barrier.
 """
 
 from __future__ import annotations
@@ -67,14 +76,17 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
+import torch.distributed as tdist
+
 from repro_torch.checkpoint import manager as ckpt
+from repro_torch.core import distributed as dist_lib
 from repro_torch.core import faults
 from repro_torch.core import graph as glib
 from repro_torch.core import partition as plib
 from repro_torch.core import support as sup_lib
-from repro_torch.core.peel import (local_threshold_peel, peel_classes,
-                                   peel_classes_batched, peel_threshold,
-                                   reject_unported)
+from repro_torch.core.peel import (PendingPeel, local_threshold_peel,
+                                   peel_classes, peel_classes_batched,
+                                   peel_threshold)
 from repro_torch.core.store import GraphStore
 from repro_torch.core.support import (list_triangles,
                                       support_from_triangle_list)
@@ -101,13 +113,53 @@ class _RestartRounds(Exception):
 
 @dataclasses.dataclass
 class _Engine:
-    """Dispatch configuration shared by a run's device launches.  ``mesh``
-    stays None until the mesh paths are ported (ROADMAP A13), so the
-    ladders' mesh-drop rung is never taken."""
+    """Dispatch configuration shared by a run's device launches.  The
+    ladders' mesh-drop rung rewrites it in place (``mesh = None``), so every
+    later dispatch, stage 2's included, runs single-device.  ``group`` is
+    the run's ranks (None without a mesh); it outlives the drop, so the
+    ranks go on agreeing on every dispatch (:func:`_dispatch`)."""
 
     kernel: str = "auto"
     device: object = None
     mesh: object = None
+    mesh_axis: object = "data"   # one axis name or a (lane, tri) pair
+
+    def __post_init__(self):
+        self.group = (None if self.mesh is None
+                      else dist_lib.mesh_group(self.mesh))
+
+    @property
+    def n_dev(self) -> int:
+        """Lane-axis size: the multiple the bucket packing pads lanes to."""
+        if self.mesh is None:
+            return 1
+        ax = self.mesh_axis
+        return dist_lib.axis_size(self.mesh, ax if isinstance(ax, str)
+                                  else ax[0])
+
+    @property
+    def devices(self) -> int:
+        """Devices spanned: the product over every named mesh axis."""
+        return dist_lib.mesh_devices(self.mesh, self.mesh_axis)
+
+
+def _dispatch(eng: _Engine, mesh, dispatch) -> PendingPeel:
+    """``dispatch()``'s non-blocking handle, where ``mesh`` is the mesh the
+    call was given.  A call of a mesh run that goes single-device (a retry's
+    sub-bucket whose lanes do not divide the lane axis, or any call after
+    the mesh drop) still has its dispatch and its finalize agreed on over
+    the run's ranks, so a failure on one rank sends every rank to the same
+    rung.  A mesh call agrees on its own."""
+    if mesh is not None or eng.group is None:
+        return dispatch()
+    h = dist_lib.agreed(eng.group, dispatch)
+    return PendingPeel(h.result, h.new_compile,
+                       agree=lambda err: dist_lib.agree(err, eng.group))
+
+
+def _agreed(eng: _Engine, fn):
+    """``fn()``, with its outcome agreed on over a mesh run's ranks."""
+    return fn() if eng.group is None else dist_lib.agreed(eng.group, fn)
 
 
 class _AdaptiveLocality:
@@ -191,8 +243,9 @@ class OocStats:
     tri_est: int = 0          # wedge-based triangle estimates, summed
     tri_rescans_avoided: int = 0  # rounds that filtered the previous
     #                           round's triangle list instead of listing
-    devices: int = 1          # devices a dispatch spans (1 until A13)
-    sharded_rounds: int = 0   # dispatches across a mesh (0 until A13)
+    devices: int = 1          # mesh devices a dispatch spans
+    sharded_rounds: int = 0   # dispatches across the mesh (stage-1 rounds
+    #                           and level peels)
     retries: int = 0          # failed dispatches re-driven by a ladder
     degraded: int = 0         # degradations taken (budget halvings)
     checkpoints: int = 0      # journal snapshots written this run
@@ -264,8 +317,9 @@ def _run_key(driver: str, n: int, edges: np.ndarray, budget,
     """Digest binding a journal to one run configuration: the driver, the
     canonical edge bytes and every parameter that changes the run's
     trajectory, so ``resume=True`` never continues a snapshot of another
-    graph or configuration.  The same digest as the JAX package's for the
-    same arguments (``devices=1``)."""
+    graph or configuration (a mesh run's ``devices`` among them, so a
+    journal written on two ranks is not resumed on one).  The same digest
+    as the JAX package's for the same arguments."""
     pname = (partitioner if isinstance(partitioner, str)
              else getattr(partitioner, "__name__", "custom"))
     h = hashlib.sha256()
@@ -311,15 +365,22 @@ class RoundJournal:
     absorbs the store's counters into ``stats`` (a resumed run's counters
     then include the I/O before the crash), and its payload is held in the
     store's ``IoAccount`` while it is written, so checkpoint bytes and
-    chunk bytes share one budget.
+    chunk bytes share one budget.  With a ``mesh`` the journal is the
+    mesh's: rank 0 alone writes the snapshots, and every rank reads the
+    newest one after a barrier.  Every rank counts each snapshot: a
+    time-gated one is due when rank 0's clock says so (one MAX all-reduce
+    a record; the ranks record in step, since they agree on every
+    dispatch).
     """
 
     def __init__(self, ckpt_dir: str, run_key: str, *,
                  every: Union[int, str] = 1, keep: int = 3,
                  clock: Callable[[], float] = time.monotonic,
-                 store: Optional[GraphStore] = None):
+                 store: Optional[GraphStore] = None, mesh=None):
         self.ckpt_dir = ckpt_dir
         self.run_key = run_key
+        self.group = None if mesh is None else dist_lib.mesh_group(mesh)
+        self.writer = self.group is None or tdist.get_rank(self.group) == 0
         self.mode, self.every = _parse_every(every)
         self.keep = keep
         self.store = store
@@ -329,9 +390,12 @@ class RoundJournal:
         self._events = 0
 
     def _due(self) -> bool:
-        if self.mode == "time":
-            return self._clock() - self._last_write >= self.every
-        return self._events % int(self.every) == 0
+        if self.mode != "time":
+            return self._events % int(self.every) == 0
+        due = self._clock() - self._last_write >= self.every
+        if self.group is None:
+            return due
+        return dist_lib.rank0_decides(due, self.group)
 
     def record(self, stage: str, index: int, arrays: Dict[str, np.ndarray],
                stats: OocStats, **extra) -> bool:
@@ -345,18 +409,20 @@ class RoundJournal:
         stats.checkpoints += 1
         if self.store is not None:
             self.store.absorb_into(stats)
-        meta = {"stage": stage, "index": int(index),
-                "run_key": self.run_key, "stats": stats.as_dict(), **extra}
-        # phi / lb / sup fit in int32; the restore paths cast back
-        arrays = {k: (np.asarray(v).astype(np.int32)
-                      if np.asarray(v).dtype == np.int64 else np.asarray(v))
-                  for k, v in arrays.items()}
-        account = getattr(self.store, "io_account", None)
-        with (account.hold(sum(int(a.nbytes) for a in arrays.values()),
-                           "checkpoint")
-              if account is not None else contextlib.nullcontext()):
-            ckpt.save(self.ckpt_dir, self.seq, arrays, metadata=meta,
-                      keep=self.keep)
+        if self.writer:
+            meta = {"stage": stage, "index": int(index),
+                    "run_key": self.run_key, "stats": stats.as_dict(),
+                    **extra}
+            # phi / lb / sup fit in int32; the restore paths cast back
+            arrays = {k: (np.asarray(v).astype(np.int32)
+                          if np.asarray(v).dtype == np.int64
+                          else np.asarray(v)) for k, v in arrays.items()}
+            account = getattr(self.store, "io_account", None)
+            with (account.hold(sum(int(a.nbytes) for a in arrays.values()),
+                               "checkpoint")
+                  if account is not None else contextlib.nullcontext()):
+                ckpt.save(self.ckpt_dir, self.seq, arrays, metadata=meta,
+                          keep=self.keep)
         if self.mode == "time":
             self._last_write = self._clock()
         return True
@@ -365,6 +431,8 @@ class RoundJournal:
         """``(arrays, meta)`` of the newest intact snapshot, or None when
         there is none (empty, or every snapshot corrupt: the run starts
         fresh, with a warning).  A ``run_key`` mismatch raises."""
+        if self.group is not None:
+            dist_lib.barrier(self.group)
         try:
             tree, meta = ckpt.restore(self.ckpt_dir)
         except FileNotFoundError:
@@ -393,7 +461,8 @@ class LowerBoundResult:
 
 def _partition_rounds(
     n: int, edges: np.ndarray, budget: int, part_fn, stats: OocStats, *,
-    with_incidence: bool = True, start_ids: Optional[np.ndarray] = None,
+    with_incidence: bool = True, lane_multiple: int = 1,
+    start_ids: Optional[np.ndarray] = None,
     store: Optional[GraphStore] = None,
 ) -> Iterator[Tuple[int, plib.PartitionBatch, np.ndarray, int,
                     Optional[float]]]:
@@ -422,7 +491,9 @@ def _partition_rounds(
     ``start_ids`` restarts from a working graph that is a subset of
     ``edges`` (resume and budget restarts); round numbering continues from
     ``stats.rounds``.  The ``"partitioner"`` fault site fires at the start
-    of every round.
+    of every round.  ``lane_multiple`` > 1 (a mesh's lane-axis size) packs
+    every batch waste-aware over a shape ladder of the run's earlier bucket
+    shapes (``partition.build_partition_batch``).
     """
     if start_ids is None:
         cur_ids = np.arange(len(edges), dtype=np.int64)
@@ -435,6 +506,7 @@ def _partition_rounds(
     cur_budget = budget
     tris_cur = None      # full triangle list of g, g-local edge ids
     tris_key = None      # the store key of the spilled triangle list
+    ladder: list = []    # (cap_e, cap_t, lanes) of the mesh batches so far
     observe = getattr(part_fn, "observe", None)
     while g.m:
         t0 = time.perf_counter()
@@ -454,11 +526,17 @@ def _partition_rounds(
         else:
             stats.tri_rescans_avoided += 1
             tris_in = tris_cur
-        batch = plib.build_partition_batch(g, parts, tris=tris_in,
-                                           with_incidence=with_incidence)
+        batch = plib.build_partition_batch(
+            g, parts, tris=tris_in, with_incidence=with_incidence,
+            lane_multiple=lane_multiple,
+            shape_ladder=ladder if lane_multiple > 1 else None)
         if spilled_round:
             stats.tri_reload_peak_rows = max(stats.tri_reload_peak_rows,
                                              batch.tri_peak_rows)
+        if lane_multiple > 1:
+            for b in batch.buckets:
+                if (b.cap_e, b.cap_t, b.n_lanes) not in ladder:
+                    ladder.append((b.cap_e, b.cap_t, b.n_lanes))
         stats.absorb_batch(batch)
         if observe is not None:
             observe(batch)
@@ -518,7 +596,9 @@ def _retry_stage1_round(eng: _Engine, stats: OocStats, shape_cache,
 
     1. lane-split retries — each bucket as ``split_bucket_lanes``
        sub-buckets (split 2, then 4, ... up to ``max_retries`` doublings);
-    2. mesh drop (unreachable until A13);
+       a sub-bucket whose lane count no longer divides the lane axis runs
+       single-device;
+    2. mesh drop — ``eng.mesh = None`` for the rest of the run;
     3. budget halving — raise :class:`_RestartRounds`, down to
        ``_MIN_ROUND_BUDGET``; below the floor the failure propagates.
 
@@ -545,12 +625,15 @@ def _retry_stage1_round(eng: _Engine, stats: OocStats, shape_cache,
             for bi, bucket in enumerate(batch.buckets):
                 for si, sub in enumerate(
                         plib.split_bucket_lanes(bucket, split)):
-                    h = peel_classes_batched(
+                    mesh = (eng.mesh if eng.mesh is not None
+                            and sub.n_lanes % eng.n_dev == 0 else None)
+                    h = _dispatch(eng, mesh, lambda: peel_classes_batched(
                         sub.sup, sub.tris, sub.alive,
-                        shape_cache=shape_cache, blocking=False,
-                        kernel=eng.kernel, device=eng.device,
+                        shape_cache=shape_cache, blocking=False, mesh=mesh,
+                        mesh_axis=eng.mesh_axis, kernel=eng.kernel,
+                        device=eng.device,
                         fault_ctx={"stage": 1, "round": round_idx,
-                                   "bucket": bi, "sub": si, "retry": split})
+                                   "bucket": bi, "sub": si, "retry": split}))
                     stats.compiles += int(h.new_compile)
                     stats.batches += 1
                     phi_b, _ = h.result()
@@ -656,7 +739,7 @@ def _lower_bounding_perpart(n, edges, budget, part_fn,
 def lower_bounding(n: int, edges: np.ndarray, budget: int,
                    partitioner: str = "sequential", engine: str = "batched",
                    *, partitioner_seed: int = 0, kernel: str = "auto",
-                   device=None, mesh=None,
+                   device=None, mesh=None, mesh_axis="data",
                    journal: Optional[RoundJournal] = None,
                    restored=None, max_retries: int = 2,
                    engine_state: Optional[_Engine] = None,
@@ -669,10 +752,11 @@ def lower_bounding(n: int, edges: np.ndarray, budget: int,
     included, and ``max_retries`` bounds the lane-split retries of a failed
     dispatch before the budget halves (:func:`_retry_stage1_round`).
     ``store`` keeps the working graph in a graph store between rounds; its
-    counters land in ``OocStats``.  ``engine="perpart"`` runs the per-part
-    seed baseline instead (the same bounds; no journal, store or mesh).
-    ``mesh`` raises ``NotImplementedError`` on the batched engine (ROADMAP
-    A13).
+    counters land in ``OocStats``.  ``mesh`` splits every bucket's lanes
+    over ``mesh_axis`` (or a (lane, tri) pair of names); ``engine_state``
+    shares one :class:`_Engine` with the caller, so a mesh drop here
+    carries into stage 2.  ``engine="perpart"`` runs the per-part seed
+    baseline instead (the same bounds; no journal, store or mesh).
     """
     check_kernel(kernel)
     part_fn = _resolve_partitioner(partitioner, seed=partitioner_seed)
@@ -680,16 +764,16 @@ def lower_bounding(n: int, edges: np.ndarray, budget: int,
     _perpart_guard(engine, mesh=mesh, store=store,
                    checkpointing=journal is not None or restored is not None)
     eng = engine_state if engine_state is not None else _Engine(
-        kernel=kernel, device=resolve_device(device))
+        kernel=kernel, device=resolve_device(device), mesh=mesh,
+        mesh_axis=mesh_axis)
     if engine == "perpart":
         return _lower_bounding_perpart(n, edges, budget, part_fn, eng.device)
-    reject_unported(mesh=mesh)
     m = len(edges)
     phi = np.zeros(m, dtype=np.int64)
     lb = np.full(m, 2, dtype=np.int64)
     in_gnew = np.zeros(m, dtype=bool)
     alive = np.ones(m, dtype=bool)        # still in the working graph
-    stats = OocStats()
+    stats = OocStats(devices=eng.devices)
     start_budget = budget
     if restored is not None:
         # the fold state is four flat arrays over original edge ids; the
@@ -702,6 +786,7 @@ def lower_bounding(n: int, edges: np.ndarray, budget: int,
         alive = tree["alive"].astype(bool)
         stats = OocStats.from_dict(meta["stats"])
         stats.resumed_round = int(meta["index"])
+        stats.devices = eng.devices
         start_budget = int(meta.get("cur_budget", budget))
         _restore_zone_state(part_fn, meta.get("zone_state"))
     shape_cache: set = set()
@@ -756,19 +841,24 @@ def lower_bounding(n: int, edges: np.ndarray, budget: int,
         try:
             for round_idx, batch, ids, cur_b, zs in _partition_rounds(
                     n, edges, start_budget, part_fn, stats,
-                    start_ids=start_ids, store=store):
+                    lane_multiple=eng.n_dev, start_ids=start_ids,
+                    store=store):
                 t0 = time.perf_counter()
                 try:
                     handles = []
                     for bi, bucket in enumerate(batch.buckets):
-                        h = peel_classes_batched(
-                            bucket.sup, bucket.tris, bucket.alive,
-                            shape_cache=shape_cache, blocking=False,
-                            kernel=eng.kernel, device=eng.device,
-                            fault_ctx={"stage": 1, "round": round_idx,
-                                       "bucket": bi, "retry": 0})
+                        h = _dispatch(
+                            eng, eng.mesh, lambda: peel_classes_batched(
+                                bucket.sup, bucket.tris, bucket.alive,
+                                shape_cache=shape_cache, blocking=False,
+                                mesh=eng.mesh, mesh_axis=eng.mesh_axis,
+                                kernel=eng.kernel, device=eng.device,
+                                fault_ctx={"stage": 1, "round": round_idx,
+                                           "bucket": bi, "retry": 0}))
                         stats.compiles += int(h.new_compile)
                         handles.append(h)
+                    stats.sharded_rounds += int(
+                        any(h.sharded for h in handles))
                 except Exception as exc:
                     stats.peel_s += time.perf_counter() - t0
                     # the previous round's handles are fine: land its folds
@@ -813,8 +903,8 @@ def _retry_candidate_peel(eng: _Engine, stats: OocStats, exc, dispatch,
     """Blocking retry ladder for a failed stage-2 / top-down candidate
     peel.  The candidate's host arrays survive, so a retry re-dispatches
     the same level (``dispatch(retry)`` dispatches, blocks and returns the
-    result).  After ``max_retries`` failures the mesh would be
-    dropped (unreachable until A13); then the failure propagates."""
+    result).  After ``max_retries`` failures the mesh is dropped and the
+    retries start over single-device; then the failure propagates."""
     attempt = 0
     while True:
         if not faults.is_retryable(exc):
@@ -838,7 +928,8 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
                         partitioner: str = "sequential",
                         engine: str = "batched", *,
                         partitioner_seed: int = 0, kernel: str = "auto",
-                        device=None, mesh=None, checkpoint_dir=None,
+                        device=None, mesh=None, mesh_axis="data",
+                        checkpoint_dir=None,
                         checkpoint_every: Union[int, str] = 1,
                         resume: bool = False, checkpoint_keep: int = 3,
                         max_retries: int = 2,
@@ -857,29 +948,36 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
     store between rounds, with the store's counters in ``OocStats``; it
     changes no result and is not part of the journal's run key.
 
+    ``mesh`` (every rank of it makes the same call) splits stage 1's bucket
+    lanes over ``mesh_axis`` and triangle-shards each stage-2 level peel
+    over it (a (lane, tri) pair: lanes over the first name, each lane's
+    rows and each level's rows over both); ``OocStats.devices`` /
+    ``sharded_rounds`` record the routing, and a ladder's mesh drop
+    finishes the run single-device.  The journal's run key binds the
+    device count.
+
     ``engine="perpart"`` is the per-part seed baseline: stage 1 by
     :func:`_lower_bounding_perpart`, and every stage-2 level built over the
     full vertex space, listed and peeled by ``peel.peel_threshold`` with
     no pre-building; the same phi, rounds and scans as the reference's, no
-    journal or store.  ``mesh`` raises ``ValueError`` with it, and
-    ``NotImplementedError`` on the batched engine (ROADMAP A13).
+    journal or store; ``mesh`` raises ``ValueError`` with it.
     """
     _perpart_guard(engine, mesh=mesh, store=store,
                    checkpointing=checkpoint_dir is not None)
-    reject_unported(mesh=mesh)
     check_kernel(kernel)
     dev = resolve_device(device)
     edges = glib.canonical_edges(edges, n)
     journal = snap = None
     if checkpoint_dir is not None:
         key = _run_key("bottom_up", n, edges, budget, partitioner,
-                       partitioner_seed, devices=1)
+                       partitioner_seed,
+                       devices=dist_lib.mesh_devices(mesh, mesh_axis))
         journal = RoundJournal(checkpoint_dir, key, every=checkpoint_every,
-                               keep=checkpoint_keep, store=store)
+                               keep=checkpoint_keep, store=store, mesh=mesh)
         if resume:
             snap = journal.load_latest()
 
-    eng = _Engine(kernel=kernel, device=dev)
+    eng = _Engine(kernel=kernel, device=dev, mesh=mesh, mesh_axis=mesh_axis)
     if snap is not None and snap[1]["stage"] == "s2":
         # stage 1 is complete in the snapshot: rebuild the stage-2 state
         tree, meta = snap
@@ -888,6 +986,7 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
         remaining = tree["remaining"].astype(bool)
         stats = OocStats.from_dict(meta["stats"])
         stats.resumed_round = int(meta["index"])
+        stats.devices = eng.devices
         k0 = int(meta["index"]) + 1     # the journaled level is complete
     else:
         lbres = lower_bounding(
@@ -941,11 +1040,11 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
 
     def peel_level(k_b, sup, tris, removable, alive_h, retry):
         """Dispatch one level's peel (non-blocking)."""
-        h = local_threshold_peel(
+        h = _dispatch(eng, eng.mesh, lambda: local_threshold_peel(
             sup, tris, removable, k_b - 2, alive0=alive_h,
-            shape_cache=shape_cache, blocking=False, kernel=eng.kernel,
-            device=eng.device,
-            fault_ctx={"stage": 2, "k": int(k_b), "retry": retry})
+            shape_cache=shape_cache, blocking=False, mesh=eng.mesh,
+            mesh_axis=eng.mesh_axis, kernel=eng.kernel, device=eng.device,
+            fault_ctx={"stage": 2, "k": int(k_b), "retry": retry}))
         stats.compiles += int(h.new_compile)
         stats.batches += 1
         return h
@@ -996,6 +1095,7 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
         t0 = time.perf_counter()
         try:
             handle = peel_level(k, sup, tris, removable, alive_h, 0)
+            stats.sharded_rounds += int(handle.sharded)
         except Exception as exc:
             dispatch_exc = exc          # enters the retry ladder below
         stats.peel_s += time.perf_counter() - t0
@@ -1063,8 +1163,9 @@ def _retry_support_round(eng: _Engine, stats: OocStats, round_idx: int,
     """Retry ladder of a failed triangle-credit round, the sibling of
     :func:`_retry_stage1_round`: lane splits (every triangle lives in one
     lane of one bucket, so the sub-buckets' triples are exactly the
-    batch's), the mesh drop (unreachable until A13), then a budget-halving
-    restart (the un-credited round's internal edges are all still alive).
+    batch's), the mesh drop (the credits are host work; the dropped mesh
+    is the shared engine state's), then a budget-halving restart (the
+    un-credited round's internal edges are all still alive).
     Returns the (sub-)buckets' triples; the caller folds them once."""
     split = 1
     while True:
@@ -1082,10 +1183,11 @@ def _retry_support_round(eng: _Engine, stats: OocStats, round_idx: int,
             stats.degraded += 1
             raise _RestartRounds(max(cur_budget // 2, _MIN_ROUND_BUDGET))
         try:
-            return [_support_credit_triples(sub, round_idx, bi, si, split)
-                    for bi, bucket in enumerate(batch.buckets)
-                    for si, sub in enumerate(
-                        plib.split_bucket_lanes(bucket, split))]
+            return _agreed(eng, lambda: [
+                _support_credit_triples(sub, round_idx, bi, si, split)
+                for bi, bucket in enumerate(batch.buckets)
+                for si, sub in enumerate(
+                    plib.split_bucket_lanes(bucket, split))])
         except Exception as e:
             exc = e
 
@@ -1094,6 +1196,7 @@ def partitioned_support(n: int, edges: np.ndarray, budget: int,
                         partitioner: str = "sequential",
                         engine: str = "batched", with_stats: bool = False,
                         *, partitioner_seed: int = 0, mesh=None,
+                        mesh_axis="data",
                         journal: Optional[RoundJournal] = None,
                         restored=None, max_retries: int = 2, store=None):
     """Exact sup(e) w.r.t. the whole graph, under a working-set budget (the
@@ -1110,13 +1213,15 @@ def partitioned_support(n: int, edges: np.ndarray, budget: int,
     round ("sup" snapshots).  A failed round (the ``"support"`` fault site)
     walks :func:`_retry_support_round`; a round's triples all exist before
     any is folded.  ``store`` keeps the working graph in a graph store
-    between rounds.
+    between rounds.  A ``mesh`` records ``OocStats.devices`` (the credits
+    never span it) and arms the ladder's mesh-drop rung, as in the
+    reference; its ranks agree on each round's outcome.
 
     ``engine="perpart"`` is the per-part seed baseline: every round
     rebuilds the working graph and lists each part's NS on its own over
     the full vertex space (the same sup, rounds and scans; no journal or
     store, and ``restored`` raises).  ``mesh`` raises ``ValueError`` with
-    it, and ``NotImplementedError`` on the batched engine (ROADMAP A13).
+    it.
     """
     part_fn = _resolve_partitioner(partitioner, seed=partitioner_seed)
     edges = glib.canonical_edges(edges, n)
@@ -1124,11 +1229,10 @@ def partitioned_support(n: int, edges: np.ndarray, budget: int,
     # ignored by the per-part engine
     _perpart_guard(engine, mesh=mesh, store=store,
                    checkpointing=restored is not None)
-    reject_unported(mesh=mesh)
     m = len(edges)
     sup = np.zeros(m, dtype=np.int64)
     alive = np.ones(m, dtype=bool)
-    stats = OocStats()
+    stats = OocStats(devices=dist_lib.mesh_devices(mesh, mesh_axis))
     cur_budget = budget
     if engine == "perpart":
         for cur_ids, sub_ids, sub_edges, _ in _perpart_rounds(
@@ -1144,10 +1248,11 @@ def partitioned_support(n: int, edges: np.ndarray, budget: int,
         alive = tree["alive"].astype(bool)
         stats = OocStats.from_dict(meta["stats"])
         stats.resumed_round = int(meta["index"])
+        stats.devices = dist_lib.mesh_devices(mesh, mesh_axis)
         cur_budget = int(meta.get("cur_budget", budget))
         _restore_zone_state(part_fn, meta.get("zone_state"))
 
-    eng = _Engine()
+    eng = _Engine(mesh=mesh, mesh_axis=mesh_axis)
     while True:
         start_ids = np.nonzero(alive)[0]
         if not len(start_ids):
@@ -1157,9 +1262,9 @@ def partitioned_support(n: int, edges: np.ndarray, budget: int,
                     n, edges, cur_budget, part_fn, stats,
                     with_incidence=False, start_ids=start_ids, store=store):
                 try:
-                    trips = [
+                    trips = _agreed(eng, lambda: [
                         _support_credit_triples(bucket, round_idx, bi, 0, 0)
-                        for bi, bucket in enumerate(batch.buckets)]
+                        for bi, bucket in enumerate(batch.buckets)])
                 except Exception as exc:
                     trips = _retry_support_round(eng, stats, round_idx,
                                                  batch, exc, cur_b,

@@ -50,7 +50,7 @@ import numpy as np
 from repro_torch.core import faults
 from repro_torch.core.bottom_up import OocStats, RoundJournal, _run_key
 from repro_torch.core.graph import Graph, build_graph, edge_id_lookup
-from repro_torch.core.peel import local_threshold_peel, reject_unported
+from repro_torch.core.peel import local_threshold_peel
 from repro_torch.device import resolve_device
 from repro_torch.kernels import check_kernel
 
@@ -330,12 +330,12 @@ def truss_maintain(graph: Union[Graph, Tuple[int, np.ndarray]],
     is never released.  ``checkpoint_dir`` journals ``(edges, phi)`` after
     every ``checkpoint_every``-th edit; ``resume=True`` rebuilds the graph
     from the newest snapshot and replays only the edits after it, and
-    refuses a journal of another stage.  ``mesh`` raises
-    ``NotImplementedError`` (ROADMAP A13); ``mesh_axis`` goes with it.
+    refuses a journal of another stage.  ``mesh`` / ``mesh_axis`` go to
+    every region peel, which then triangle-shards over the mesh's ranks
+    (every rank makes the same call); rank 0 alone writes the journal.
 
     The result's phi equals a full decomposition of ``result.graph.edges``.
     """
-    reject_unported(mesh=mesh)
     check_kernel(kernel)
     dev = resolve_device(device)
     if isinstance(graph, Graph):
@@ -353,7 +353,8 @@ def truss_maintain(graph: Union[Graph, Tuple[int, np.ndarray]],
             f"phi has {len(phi)} entries but the graph has {g.m} edges")
     steps = _normalize_edits(edits)
     stats = OocStats()
-    peel_kwargs = dict(shape_cache=set(), kernel=kernel, device=dev)
+    peel_kwargs = dict(shape_cache=set(), kernel=kernel, device=dev,
+                       mesh=mesh, mesh_axis=mesh_axis)
 
     journal = None
     start = 0
@@ -362,7 +363,8 @@ def truss_maintain(graph: Union[Graph, Tuple[int, np.ndarray]],
                            partitioner="none", partitioner_seed=0,
                            edits=_edits_digest(steps))
         journal = RoundJournal(checkpoint_dir, run_key,
-                               every=checkpoint_every, store=store)
+                               every=checkpoint_every, store=store,
+                               mesh=mesh)
         snap = journal.load_latest() if resume else None
         if snap is not None:
             tree, meta = snap

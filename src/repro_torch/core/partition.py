@@ -17,7 +17,10 @@ fit a working-set budget, counted in edge entries:
 every NS(P) extracted in one sweep and compacted to local edge ids, parts
 grouped into pow4 size classes, first-fit-decreasing packed into lanes and
 padded to static shapes.  Padding lanes are dead and padding triangles
-point at the per-lane drop slot ``cap_e``.
+point at the per-lane drop slot ``cap_e``.  For a mesh dispatch
+(``lane_multiple`` > 1) the packing is waste-aware instead: one capacity
+class, lanes padded to the device multiple only, and a shape ladder of the
+run's earlier bucket shapes.
 """
 
 from __future__ import annotations
@@ -81,6 +84,13 @@ def _pack_cost_bounded(vertices, cost: np.ndarray,
     if cur:
         parts.append(np.asarray(cur, dtype=np.int32))
     return parts
+
+
+def round_up_to_multiple(count: int, multiple: int) -> int:
+    """Smallest positive count >= ``count`` divisible by ``multiple``: the
+    lane and row padding rule of the mesh dispatch (the lane packing below,
+    ``distributed.pad_bucket_lanes``, the candidate peel's triangle rows)."""
+    return max(1, -(-count // multiple)) * multiple
 
 
 def _first_fit_decreasing(sizes: Sequence[int],
@@ -469,7 +479,9 @@ def build_partition_batch(
     with_incidence: bool = True,
     pad_lanes_pow2: bool = True,
     lane_capacity: int | None = None,
+    lane_multiple: int = 1,
     tris=None,
+    shape_ladder: Sequence[Tuple[int, int, int]] | None = None,
 ) -> PartitionBatch:
     """Extract, compact, pack and pad every NS(P) of one round.
 
@@ -479,6 +491,16 @@ def build_partition_batch(
     classes and first-fit-decreasing packed into lanes of the class
     capacity; the lane count is padded to a pow2 (``pad_lanes_pow2``).
     ``lane_capacity`` forces every part into one class of that capacity.
+
+    ``lane_multiple`` > 1 (the lane-axis size of a mesh dispatch, so every
+    rank peels the same number of lanes) packs waste-aware: every part goes
+    into ONE class of capacity ``pow2_ceil(max(max_part, total /
+    lane_multiple))`` and the lane count is padded to the device multiple
+    only, never to a pow2 first.  ``shape_ladder`` (with it) lists the
+    ``(cap_e, cap_t, lanes)`` shapes of the run's earlier buckets: a round
+    that fits one is packed into the tightest of them (smallest ``cap_e *
+    cap_t``), a round that fits none at its natural shape.  The padding
+    either adds is counted in ``padded_slots``.
     ``with_incidence=False`` skips the per-lane supports and incidence CSR.
     ``tris`` passes a precomputed (T, 3) triangle list of the full graph
     ``g`` (the incremental round pipeline), which replaces the enumeration,
@@ -561,12 +583,33 @@ def build_partition_batch(
                               tri_est=tri_est, tri_peak_rows=tri_peak_rows)
 
     groups: dict[int, List[int]] = {}
-    for idx, item in enumerate(per_part):
-        if lane_capacity is not None and item[2] <= lane_capacity:
-            key = lane_capacity
-        else:
-            key = _pow4_ceil(item[2])
-        groups.setdefault(key, []).append(idx)
+    floor_t, floor_l = 1, 1
+    if lane_multiple > 1:
+        # waste-aware mesh packing: one class sized to the observed cap
+        sizes = [item[2] for item in per_part]
+        tri_lens = [len(item[3]) for item in per_part]
+        floor_cap = 1 if lane_capacity is None else lane_capacity
+        key = _pow2_ceil(max(max(sizes), -(-sum(sizes) // lane_multiple),
+                             floor_cap))
+        # the tightest ladder shape the round fits (a trial FFD pack each)
+        for fe, ft, fl in sorted(shape_ladder or (),
+                                 key=lambda s: s[0] * s[1]):
+            if fe < max(max(sizes), floor_cap):
+                continue
+            trial = _first_fit_decreasing(sizes, fe)
+            if len(trial) > fl or max(
+                    sum(tri_lens[i] for i in lane) for lane in trial) > ft:
+                continue
+            key, floor_t, floor_l = fe, ft, fl
+            break
+        groups[key] = list(range(len(per_part)))
+    else:
+        for idx, item in enumerate(per_part):
+            if lane_capacity is not None and item[2] <= lane_capacity:
+                key = lane_capacity
+            else:
+                key = _pow4_ceil(item[2])
+            groups.setdefault(key, []).append(idx)
 
     buckets: List[PartBucket] = []
     total_real = total_pad = max_part = 0
@@ -578,7 +621,15 @@ def build_partition_batch(
         lane_T = [sum(len(per_part[i][3]) for i in lane) for lane in lanes]
         cap_t = _pow4_ceil(max(max(lane_T), 1))
         n_real_lanes = len(lanes)
-        B = _pow2_ceil(n_real_lanes) if pad_lanes_pow2 else n_real_lanes
+        if lane_multiple > 1:
+            # equal lanes per rank; a ladder shape pins T and the lanes too
+            cap_t = max(cap_t, floor_t)
+            B = round_up_to_multiple(max(n_real_lanes, floor_l),
+                                     lane_multiple)
+        elif pad_lanes_pow2:
+            B = _pow2_ceil(n_real_lanes)
+        else:
+            B = n_real_lanes
         sup_b = np.zeros((B, cap_e), np.int32)
         tris_b = np.full((B, cap_t, 3), cap_e, np.int32)
         alive_b = np.zeros((B, cap_e), bool)

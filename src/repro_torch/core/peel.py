@@ -20,7 +20,9 @@ Engines:
 * the **batched local peels** of the out-of-core drivers
   (``peel_classes_batched`` over the (B, cap_e) lanes of a partition
   bucket, ``local_threshold_peel`` over one compacted candidate), which run
-  the fused round kernel of ``kernels.frontier_peel``.
+  the fused round kernel of ``kernels.frontier_peel``; with a ``mesh`` they
+  span the ranks of a ``torch.distributed`` device mesh
+  (``core.distributed``).
 
 JAX runs each peel as one ``lax.while_loop`` on the device.  Here the loops
 are host loops over device tensors: every iteration reads its loop-control
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import faults
+from repro_torch.core import partition as plib
 from repro_torch.core.graph import build_graph, canonical_edges
 from repro_torch.core.support import (_pow2_ceil, _pow4_ceil,
                                       list_triangles,
@@ -54,24 +57,6 @@ from repro_torch.kernels.frontier_peel.ops import (_S_GATHERED, _S_MAXF,
                                                    _S_REMOVED, _S_ROUNDS,
                                                    N_STATS)
 from repro_torch.kernels.frontier_peel.ref import BIG
-
-# arguments of the JAX package's entry points that this port does not carry
-# yet, with the ROADMAP item each waits for
-_NOT_PORTED = {
-    "mesh": "A13 (distributed mesh paths)",
-    "mesh_axes": "A13 (distributed mesh paths)",
-}
-
-
-def reject_unported(**kwargs) -> None:
-    """Raise ``NotImplementedError`` for any argument of the reference
-    entry points that is set but not ported yet (never ignore one)."""
-    for name, value in kwargs.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name}= is not ported to repro_torch yet: ROADMAP "
-                f"{_NOT_PORTED[name]}")
-
 
 def _put(x, dtype, device) -> torch.Tensor:
     """Host array or tensor -> tensor of ``dtype`` on ``device``."""
@@ -438,14 +423,19 @@ class PendingPeel:
     known at dispatch time (the shape-cache lookup).  ``fault_ctx``
     (optional) names the dispatch at the ``"finalize"`` fault site, which
     fires before the copy to the host and poisons the handle like a real
-    device error would.
+    device error would.  ``sharded`` records a mesh dispatch, whose ranks
+    agree on the finalize's outcome through ``agree(err)``, which raises on
+    every rank when any of them failed.
     """
 
     def __init__(self, finalize, new_compile: bool,
-                 fault_ctx: Optional[dict] = None):
+                 fault_ctx: Optional[dict] = None, *, sharded: bool = False,
+                 agree=None):
         self._finalize = finalize
         self.new_compile = bool(new_compile)
         self._fault_ctx = fault_ctx
+        self.sharded = sharded
+        self._agree = agree
         self._out = None
         self._error = None
 
@@ -459,10 +449,17 @@ class PendingPeel:
             try:
                 if self._fault_ctx is not None:
                     faults.check(faults.FINALIZE, **self._fault_ctx)
-                self._out = finalize()
+                out = finalize()
             except BaseException as e:
                 self._error = e
-                raise
+            if self._agree is not None:
+                try:
+                    self._agree(self._error)
+                except BaseException as e:
+                    self._error = e
+            if self._error is not None:
+                raise self._error
+            self._out = out
         return self._out
 
 
@@ -474,22 +471,65 @@ def _note_shape(shape_cache, key) -> bool:
     return new
 
 
+def _check_dispatch(fault_ctx) -> None:
+    if fault_ctx is not None:
+        faults.check(faults.DISPATCH, **fault_ctx)
+
+
+def _upload_lanes(sup_b, tris_b, alive_b, dev):
+    """B1's inputs from (B, cap_e) host lanes: sup, the rows up to each
+    lane's last real row, alive, and that row count per lane (int32
+    tensors on ``dev``); padding rows before it are dropped by the first
+    round."""
+    tris_np = np.asarray(tris_b)
+    real = (tris_np < int(np.shape(sup_b)[1])).all(axis=2)
+    n_rows = np.where(real.any(axis=1),
+                      real.shape[1] - np.argmax(real[:, ::-1], axis=1), 0)
+    return (_put(sup_b, torch.int32, dev),
+            _put(tris_np[:, :max(int(n_rows.max()), 1)], torch.int32, dev),
+            _put(alive_b, torch.int32, dev), _put(n_rows, torch.int32, dev))
+
+
+def _host_result(result, fault_ctx, mesh):
+    """A handle of a result computed on the host; on a mesh the ranks still
+    agree on its dispatch and finalize."""
+    if mesh is None:
+        return PendingPeel(lambda: result, False, fault_ctx)
+    from repro_torch.core import distributed as dist_lib
+
+    dist_lib.agreed(dist_lib.mesh_group(mesh),
+                    lambda: _check_dispatch(fault_ctx))
+    return PendingPeel(lambda: result, False, fault_ctx,
+                       agree=dist_lib.agreement(mesh))
+
+
 def peel_classes_batched(sup_b, tris_b, alive_b, *, shape_cache=None,
-                         blocking=True, kernel: str = "auto", device=None,
+                         blocking=True, mesh=None, mesh_axis="data",
+                         kernel: str = "auto", device=None,
                          fault_ctx: Optional[dict] = None):
     """Local trussness of every lane of one partition bucket.
 
     Host arrays in: (B, cap_e) sup / alive and (B, cap_t, 3) triangles in
     lane-local edge ids (padding rows on the drop slot cap_e).  The lanes
     peel in lockstep through the fused round kernel
-    (``frontier_peel.ops.peel_classes_fused``); a triangle-free bucket
+    (``frontier_ops.peel_classes_fused``); a triangle-free bucket
     short-cuts on the host (every alive edge peels at k = 2).  Only the
     rows up to each lane's last real row are uploaded, with that count per
     lane; padding rows before it are dropped by the first round.
 
+    With a ``mesh`` (a ``DeviceMesh`` whose every rank makes this same
+    call) the lanes are split over ``mesh_axis``
+    (``distributed.peel_classes_batched_sharded``): padded with dead lanes
+    to a multiple of the axis size, peeled with no communication, and
+    gathered, so every rank gets the whole bucket.  A (lane, tri) pair of
+    axis names also splits each lane's rows over the second axis.  The
+    ranks agree on the dispatch's and the finalize's outcome, and the
+    handle's ``sharded`` flag records the routing.
+
     ``shape_cache`` is a caller-owned set of launch shapes; the result
     reports whether this call added one (the drivers' ``compiles``
-    counter: the distinct launch shapes of a run).
+    counter: the distinct launch shapes of a run; a mesh shape ends in
+    ``("mesh", sizes...)`` and counts the padded lanes).
 
     ``fault_ctx`` names this call at the ``"dispatch"`` fault site, checked
     before anything is uploaded, and its handle at ``"finalize"``; None (the
@@ -498,29 +538,39 @@ def peel_classes_batched(sup_b, tris_b, alive_b, *, shape_cache=None,
     Returns (phi (B, cap_e) int32, stats (B, N_STATS) int32, new_shape) as
     numpy when blocking, else a :class:`PendingPeel` yielding (phi, stats).
     """
-    if fault_ctx is not None:
-        faults.check(faults.DISPATCH, **fault_ctx)
+    if mesh is None:
+        _check_dispatch(fault_ctx)
     check_kernel(kernel)
     dev = resolve_device(device)
     tris_np = np.asarray(tris_b)
-    cap_e = int(np.shape(sup_b)[1])
+    B, cap_e = np.shape(sup_b)
     if (tris_np[:, :, 0] >= cap_e).all():
         phi = np.where(np.asarray(alive_b), 2, 0).astype(np.int32)
         st = np.zeros((tris_np.shape[0], N_STATS), np.int32)
-        pending = PendingPeel(lambda: (phi, st), False, fault_ctx)
+        pending = _host_result((phi, st), fault_ctx, mesh)
+    elif mesh is not None:
+        from repro_torch.core import distributed as dist_lib
+
+        axes = dist_lib._axes_tuple(mesh_axis)
+        b_pad = plib.round_up_to_multiple(
+            B, dist_lib.axis_size(mesh, axes[0]))
+        new = _note_shape(shape_cache, (
+            (b_pad, cap_e), (b_pad,) + tuple(tris_np.shape[1:]),
+            ("mesh",) + tuple(dist_lib.axis_size(mesh, a) for a in axes)))
+        phi_d, st_d = dist_lib.peel_classes_batched_sharded(
+            mesh, sup_b, tris_np, alive_b, axis=mesh_axis, device=dev,
+            before=lambda: _check_dispatch(fault_ctx))
+        pending = PendingPeel(
+            lambda: (phi_d.cpu().numpy(), st_d.cpu().numpy()), new,
+            fault_ctx, sharded=True, agree=dist_lib.agreement(mesh))
     else:
         new = _note_shape(shape_cache, (tuple(np.shape(sup_b)),
                                         tuple(tris_np.shape)))
-        # rows past a lane's last real row are padding: not uploaded
-        real = (tris_np < cap_e).all(axis=2)
-        n_rows = np.where(real.any(axis=1),
-                          real.shape[1] - np.argmax(real[:, ::-1], axis=1), 0)
+        sup, tris, alive, n_rows = _upload_lanes(sup_b, tris_np, alive_b,
+                                                 dev)
         phi_d, st_d = frontier_ops.peel_classes_fused(
-            _put(sup_b, torch.int32, dev),
-            _put(tris_np[:, :max(int(n_rows.max()), 1)], torch.int32, dev),
-            _put(alive_b, torch.int32, dev), n_rows=_put(n_rows, torch.int32,
-                                                         dev),
-            cap_t=tris_np.shape[1], kernel=kernel)
+            sup, tris, alive, n_rows=n_rows, cap_t=tris_np.shape[1],
+            kernel=kernel)
         pending = PendingPeel(
             lambda: (phi_d.cpu().numpy(), st_d.cpu().numpy()), new,
             fault_ctx)
@@ -531,9 +581,9 @@ def peel_classes_batched(sup_b, tris_b, alive_b, *, shape_cache=None,
 
 
 def local_threshold_peel(sup0, tris, removable, thresh, *, alive0=None,
-                         shape_cache=None, blocking=True,
-                         kernel: str = "auto", device=None,
-                         fault_ctx: Optional[dict] = None):
+                         shape_cache=None, blocking=True, mesh=None,
+                         mesh_axis="data", kernel: str = "auto",
+                         device=None, fault_ctx: Optional[dict] = None):
     """Single-level peel of a compacted candidate subgraph on padded shapes.
 
     The per-k class extraction of both out-of-core drivers peels one
@@ -548,11 +598,19 @@ def local_threshold_peel(sup0, tris, removable, thresh, *, alive0=None,
     fault sites, as in :func:`peel_classes_batched`.  The round loop runs at
     dispatch, so a real device OOM surfaces here, not at finalize.
 
+    With a ``mesh`` the triangle rows (padded with drop-slot rows to a
+    multiple of the shard count) are split over ``mesh_axis``, or over the
+    flattened product of several names, and every round's decrements are
+    summed across the ranks (``distributed.local_threshold_peel_sharded``);
+    the edge state stays replicated, the ranks agree on the dispatch's and
+    the finalize's outcome, and the handle's ``sharded`` flag records the
+    routing.
+
     Host arrays in; returns (alive_mask, removed_mask, new_shape) as numpy
     when blocking, else a :class:`PendingPeel` yielding the two masks.
     """
-    if fault_ctx is not None:
-        faults.check(faults.DISPATCH, **fault_ctx)
+    if mesh is None:
+        _check_dispatch(fault_ctx)
     check_kernel(kernel)
     dev = resolve_device(device)
     m, T = int(len(sup0)), int(len(tris))
@@ -562,21 +620,38 @@ def local_threshold_peel(sup0, tris, removable, thresh, *, alive0=None,
     if T == 0:
         # no triangles: removals cascade nothing, one sweep is the fixpoint
         removed = removable & (np.asarray(sup0) <= thresh)
-        alive_out = alive0 & ~removed
-        pending = PendingPeel(lambda: (alive_out, removed), False, fault_ctx)
+        return _finish_threshold(
+            _host_result((alive0 & ~removed, removed), fault_ctx, mesh),
+            blocking)
+    key = (_pow4_ceil(max(m, 1)), _pow4_ceil(max(T, 1)))
+    if mesh is not None:
+        from repro_torch.core import distributed as dist_lib
+
+        n_dev = dist_lib.axis_size(mesh, mesh_axis)
+        new = _note_shape(shape_cache, key + (("mesh", n_dev),))
+        alive_dev = dist_lib.local_threshold_peel_sharded(
+            mesh, sup0, dist_lib.pad_triangles(np.asarray(tris), m, n_dev),
+            alive0, removable, thresh, axis=mesh_axis, device=dev,
+            before=lambda: _check_dispatch(fault_ctx))
+        agree = dist_lib.agreement(mesh)
     else:
-        new = _note_shape(shape_cache, (_pow4_ceil(max(m, 1)),
-                                        _pow4_ceil(max(T, 1))))
+        new = _note_shape(shape_cache, key)
         alive_dev = frontier_ops.peel_threshold_fused(
             _put(sup0, torch.int32, dev), _put(tris, torch.int32, dev),
             _put(removable, torch.int32, dev), int(thresh),
             _put(alive0, torch.int32, dev), kernel=kernel)
+        agree = None
 
-        def _finish():
-            alive = alive_dev.cpu().numpy() > 0
-            return alive, alive0 & ~alive
+    def _finish():
+        alive = alive_dev.cpu().numpy() > 0
+        return alive, alive0 & ~alive
 
-        pending = PendingPeel(_finish, new, fault_ctx)
+    return _finish_threshold(
+        PendingPeel(_finish, new, fault_ctx, sharded=mesh is not None,
+                    agree=agree), blocking)
+
+
+def _finish_threshold(pending, blocking):
     if not blocking:
         return pending
     alive, removed = pending.result()
@@ -599,10 +674,10 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
                     memory_budget=None, partitioner: str = "sequential",
                     partitioner_seed: int = 0, kernel: str = "auto",
                     with_stats: bool = False, device=None, mesh=None,
-                    mesh_axes=None, checkpoint_dir=None, checkpoint_every=1,
-                    resume: bool = False, max_retries: int = 2,
-                    store=None, host_memory_budget=None, edits=None,
-                    phi0=None):
+                    mesh_axis="data", mesh_axes=None, checkpoint_dir=None,
+                    checkpoint_every=1, resume: bool = False,
+                    max_retries: int = 2, store=None,
+                    host_memory_budget=None, edits=None, phi0=None):
     """End-to-end decomposition: phi (m,) int64 per canonical edge.
 
     ``engine``: "auto" (default) peels in memory (frontier or dense, see
@@ -638,15 +713,22 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
     indexes the canonical post-edit edge list; ``store`` and the journal
     arguments go to the maintenance.  ``phi0`` without ``edits`` raises.
 
+    ``mesh`` (a ``torch.distributed`` ``DeviceMesh``; every rank makes the
+    same call) spans the out-of-core engines and the maintenance across its
+    ranks (``core.distributed``): bucket lanes split over ``mesh_axis``,
+    each level's candidate peel triangle-sharded.  ``mesh_axes`` (a
+    sequence of names) overrides ``mesh_axis``: lanes over the first axis,
+    each lane's rows over the second.  The in-memory engines ignore the
+    mesh, as in the reference.  With ``host_memory_budget=`` each rank's
+    store gets its own temporary directory.
+
     ``kernel``: "auto" only — the fused round kernel on CUDA, its plain
     version on the CPU (out-of-core engines and maintenance; the in-memory
     engines have none).  ``device``: None means the CUDA card (raises
     without CUDA); pass "cpu" for the plain versions on the host.
     ``with_stats`` also returns a :class:`PeelStats` (frontier), None
-    (dense) or an ``OocStats`` (out-of-core and maintenance).  ``mesh`` and
-    ``mesh_axes`` are not ported yet and raise ``NotImplementedError``.
+    (dense) or an ``OocStats`` (out-of-core and maintenance).
     """
-    reject_unported(mesh=mesh, mesh_axes=mesh_axes)
     check_kernel(kernel)
     dev = resolve_device(device)
     if memory_budget is not None and memory_budget <= 0:
@@ -657,6 +739,10 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
         raise ValueError(
             f"host_memory_budget must be a positive byte count, got "
             f"{host_memory_budget!r}")
+    if mesh_axes is not None:
+        axes = (mesh_axes,) if isinstance(mesh_axes, str) else \
+            tuple(mesh_axes)
+        mesh_axis = axes[0] if len(axes) == 1 else axes
     if phi0 is not None and edits is None:
         raise ValueError("phi0= is only meaningful together with edits=")
     if edits is not None:
@@ -666,11 +752,12 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
             phi0 = truss_decompose(
                 n, edges, engine=engine, memory_budget=memory_budget,
                 partitioner=partitioner, partitioner_seed=partitioner_seed,
-                kernel=kernel, max_retries=max_retries, device=dev)
+                mesh=mesh, mesh_axis=mesh_axis, kernel=kernel,
+                max_retries=max_retries, device=dev)
         res = truss_maintain(
-            (n, np.asarray(edges)), phi0, edits, kernel=kernel, store=store,
-            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-            resume=resume, device=dev)
+            (n, np.asarray(edges)), phi0, edits, kernel=kernel, mesh=mesh,
+            mesh_axis=mesh_axis, store=store, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, resume=resume, device=dev)
         phi = np.asarray(res.phi, dtype=np.int64)
         return (phi, res.stats) if with_stats else phi
     g = build_graph(n, edges)
@@ -693,13 +780,17 @@ def truss_decompose(n: int, edges: np.ndarray, *, engine: str = "auto",
             if store is None and host_memory_budget is not None:
                 from repro_torch.core.store import ChunkedDiskStore
 
+                import torch.distributed as tdist
+
+                rank = "" if mesh is None else f"r{tdist.get_rank()}-"
                 tmp = own.enter_context(tempfile.TemporaryDirectory(
-                    prefix="truss-store-"))
+                    prefix=f"truss-store-{rank}"))
                 store = own.enter_context(ChunkedDiskStore(
                     tmp, host_memory_budget=host_memory_budget))
             ooc = dict(partitioner=partitioner,
                        partitioner_seed=partitioner_seed, kernel=kernel,
-                       device=dev, checkpoint_dir=checkpoint_dir,
+                       device=dev, mesh=mesh, mesh_axis=mesh_axis,
+                       checkpoint_dir=checkpoint_dir,
                        checkpoint_every=checkpoint_every, resume=resume,
                        max_retries=max_retries, store=store)
             if engine == "bottom-up":

@@ -28,8 +28,8 @@ external unclassified edges are excluded from the candidate peel;
 
 Journal and retries as in ``bottom_up``: stage-1 credit rounds are "sup"
 snapshots, completed levels "td" snapshots; a failed level peel walks
-``bottom_up._retry_candidate_peel``.  Not ported yet: the mesh paths
-(A13).
+``bottom_up._retry_candidate_peel``.  With a ``mesh`` every level's
+candidate peel is triangle-sharded over its ranks (``core.distributed``).
 """
 
 from __future__ import annotations
@@ -41,10 +41,10 @@ from typing import List, Optional, Union
 import numpy as np
 
 from repro_torch.core import graph as glib
-from repro_torch.core.bottom_up import (OocStats, RoundJournal, _Engine,
-                                        _retry_candidate_peel, _run_key,
-                                        partitioned_support)
-from repro_torch.core.peel import local_threshold_peel, reject_unported
+from repro_torch.core.bottom_up import (OocStats, RoundJournal, _dispatch,
+                                        _Engine, _retry_candidate_peel,
+                                        _run_key, partitioned_support)
+from repro_torch.core.peel import local_threshold_peel
 from repro_torch.core.support import (edge_support_auto, list_triangles,
                                       support_from_triangle_list)
 from repro_torch.device import resolve_device
@@ -107,7 +107,7 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
                        checkpoint_every: Union[int, str] = 1,
                        resume: bool = False, checkpoint_keep: int = 3,
                        max_retries: int = 2, store=None, mesh=None,
-                       device=None) -> TopDownResult:
+                       mesh_axis="data", device=None) -> TopDownResult:
     """Algorithm 7: the top-t k-classes (all classes if t is None).
 
     ``budget`` (NS edge entries per part) runs stage 1 as
@@ -123,16 +123,20 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
     failed level peel or credit round.  ``store`` routes stage 1's working
     graph through a graph store and needs a ``budget`` (the unbudgeted
     supports are computed over the whole resident graph).  ``device=None``
-    means the CUDA card; ``mesh`` raises ``NotImplementedError`` (ROADMAP
-    A13).
+    means the CUDA card.
+
+    ``mesh`` (every rank of it makes the same call) triangle-shards every
+    level's candidate peel over ``mesh_axis``, or over the flattened
+    product of a tuple of names; ``OocStats.devices`` / ``sharded_rounds``
+    record the routing, and the journal's run key binds the device count.
     """
-    reject_unported(mesh=mesh)
     check_kernel(kernel)
     dev = resolve_device(device)
     edges = glib.canonical_edges(edges, n)
     m = len(edges)
     phi = np.zeros(m, dtype=np.int64)
-    stats = OocStats()
+    eng = _Engine(kernel=kernel, device=dev, mesh=mesh, mesh_axis=mesh_axis)
+    stats = OocStats(devices=eng.devices)
     if store is not None and budget is None:
         raise ValueError(
             "store= requires a working-set budget (the unbudgeted support "
@@ -144,9 +148,9 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
     if checkpoint_dir is not None:
         key = _run_key("top_down", n, edges, budget, partitioner,
                        partitioner_seed, t=t, faithful=bool(faithful_proc8),
-                       devices=1)
+                       devices=eng.devices)
         journal = RoundJournal(checkpoint_dir, key, every=checkpoint_every,
-                               keep=checkpoint_keep, store=store)
+                               keep=checkpoint_keep, store=store, mesh=mesh)
         if resume:
             snap = journal.load_latest()
     td_snap = snap if snap is not None and snap[1].get("stage") == "td" \
@@ -158,12 +162,14 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
         sup = np.asarray(td_snap[0]["sup"], dtype=np.int64)
         stats = OocStats.from_dict(td_snap[1]["stats"])
         stats.resumed_round = int(td_snap[1]["index"])
+        stats.devices = eng.devices
     elif budget is None:
         sup = edge_support_auto(glib.build_graph(n, edges), device=dev)
     else:
         sup, stats = partitioned_support(
             n, edges, budget, partitioner, with_stats=True,
-            partitioner_seed=partitioner_seed, journal=journal,
+            partitioner_seed=partitioner_seed, mesh=mesh,
+            mesh_axis=mesh_axis, journal=journal,
             restored=snap if snap is not None
             and snap[1].get("stage") == "sup" else None,
             max_retries=max_retries, store=store)
@@ -176,7 +182,6 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
     gnew_ids = np.nonzero(alive)[0]
     tris_l = np.asarray(list_triangles(gnew), dtype=np.int64).reshape(-1, 3)
     shape_cache: set = set()
-    eng = _Engine(kernel=kernel, device=dev)
     # masks below are in G_new-local edge ids
     alive_l = np.ones(gnew.m, dtype=bool)
     classified_l = np.zeros(gnew.m, dtype=bool)
@@ -239,13 +244,14 @@ def top_down_decompose(n: int, edges: np.ndarray, t: Optional[int] = None,
 
     def peel_level(k_b, sup0, tris_loc, removable, alive_h, retry):
         """Dispatch one level's peel (non-blocking)."""
-        h = local_threshold_peel(
+        h = _dispatch(eng, eng.mesh, lambda: local_threshold_peel(
             sup0, tris_loc, removable, k_b - 3, alive0=alive_h,
-            shape_cache=shape_cache, blocking=False, kernel=eng.kernel,
-            device=eng.device,
-            fault_ctx={"stage": "td", "k": int(k_b), "retry": retry})
+            shape_cache=shape_cache, blocking=False, mesh=eng.mesh,
+            mesh_axis=eng.mesh_axis, kernel=eng.kernel, device=eng.device,
+            fault_ctx={"stage": "td", "k": int(k_b), "retry": retry}))
         stats.compiles += int(h.new_compile)
         stats.batches += 1
+        stats.sharded_rounds += int(h.sharded)
         return h
 
     pre = None          # candidate pre-built while the previous level peeled

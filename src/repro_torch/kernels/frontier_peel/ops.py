@@ -12,6 +12,11 @@ writes the survivors into the other buffer; the counts stay on the device.
 A round in which no lane removes an edge is a no-op for the round kernel, so
 its launch is skipped; the stats are identical to the reference's.
 
+Both loops take an optional ``merge`` (``core.distributed.RoundMerge``): a
+rank that holds only a shard of the triangle rows hands it each round, and
+it runs the round and sums the decrements of every rank of its group, so
+the replicated edge state stays equal on all of them.
+
 The reference's routing rule for ``kernel="auto"`` (TPU backend, VMEM
 budget, 3T >= E) does not carry over: here ``"auto"`` means the CUDA kernel
 for CUDA tensors and the plain version for CPU tensors.
@@ -63,16 +68,17 @@ class _Rows:
 
 
 def peel_classes_fused(sup_b, tris_b, alive_b, *, n_rows=None, cap_t=None,
-                       kernel: str = "auto"):
+                       kernel: str = "auto", merge=None):
     """Trussness of every lane by lockstep fused rounds.
 
     sup_b/alive_b: (B, E) int32 tensors, tris_b: (B, T, 3) int32 on the same
     device (padding rows on the drop slot E).  ``n_rows`` (B,) gives each
     lane's row count (rows past it are never read), default T.  ``cap_t`` is
-    the triangle capacity the stats count, default T.  Returns (phi (B, E)
-    int32, stats (B, N_STATS) int32): per lane, rounds += 1 while the lane
-    is alive, removed += frontier size, gathered += 3 cap_t on rounds that
-    remove, max frontier.
+    the triangle capacity the stats count, default T.  ``merge(sup, step)``
+    runs each round (``step``) and returns the merged (sup, alive).  Returns
+    (phi (B, E) int32, stats (B, N_STATS) int32): per lane, rounds += 1
+    while the lane is alive, removed += frontier size, gathered += 3 cap_t
+    on rounds that remove, max frontier.
     """
     check_kernel(kernel)
     sup, alive = sup_b, alive_b
@@ -96,7 +102,7 @@ def peel_classes_fused(sup_b, tris_b, alive_b, *, n_rows=None, cap_t=None,
                              torch.maximum(k + 1, min_sup + 2), k)
         phi = torch.where(rm > 0, k[:, None], phi)
         if any_rm:
-            sup, alive = rows.round(sup, alive, rm)
+            sup, alive = _round(rows, sup, alive, rm, merge)
         st[:, _S_ROUNDS] += lane_alive.to(torch.int32)
         st[:, _S_REMOVED] += nf
         st[:, _S_GATHERED] += torch.where(has_rm, three_t, 0).to(torch.int32)
@@ -106,18 +112,27 @@ def peel_classes_fused(sup_b, tris_b, alive_b, *, n_rows=None, cap_t=None,
 
 
 def peel_threshold_fused(sup, tris, removable, thresh: int, alive0, *,
-                         kernel: str = "auto"):
+                         n_rows=None, kernel: str = "auto", merge=None):
     """Single-level candidate peel by fused rounds: repeatedly remove the
     removable alive edges with ``sup <= thresh``.  (E,) int32 sup /
-    removable / alive0 and (T, 3) int32 triangles on one device; returns the
-    final (E,) int32 alive mask."""
+    removable / alive0 and (T, 3) int32 triangles on one device, of which
+    the first ``n_rows`` (a (1,) int32 tensor, default T) are read;
+    ``merge`` as in :func:`peel_classes_fused`.  Returns the final (E,)
+    int32 alive mask."""
     check_kernel(kernel)
     sup, alive = sup[None], alive0[None]
-    rows = _Rows(tris[None], None)
+    rows = _Rows(tris[None], n_rows)
     rem = removable[None] > 0
     while True:
         rm = torch.where(rem & (sup <= thresh), alive, 0)
         (any_rm,) = host_read(rm.any())
         if not any_rm:
             return alive[0]
-        sup, alive = rows.round(sup, alive, rm)
+        sup, alive = _round(rows, sup, alive, rm, merge)
+
+
+def _round(rows, sup, alive, rm, merge):
+    """One round over the live rows, merged across ranks by ``merge``."""
+    if merge is None:
+        return rows.round(sup, alive, rm)
+    return merge(sup, lambda: rows.round(sup, alive, rm))

@@ -2,7 +2,7 @@
 ``torch.Generator``, RMS norm, SwiGLU and rotary embeddings.
 
 The reference's mesh helpers (``shard``, ``dp_spec``) are the identity
-without a mesh and are left out; mesh paths are ROADMAP A13.
+without a mesh and are left out; the LM's mesh paths are ROADMAP A14.
 """
 
 from __future__ import annotations

@@ -156,7 +156,11 @@ def test_noop_edits_skipped():
     np.testing.assert_array_equal(res.phi, PHI0[name])
 
 
-def test_input_errors():
+def test_input_errors(tmp_path):
+    """Bad edits and a phi of the wrong length raise; ``mesh=`` (a one-rank
+    gloo mesh in this process) maintains as the reference does."""
+    from tests.torch_mesh import one_rank_mesh
+
     name, n, ce = CORPUS[0]
     with pytest.raises(ValueError, match="insert.*delete"):
         tm.truss_maintain((n, ce), PHI0[name], [("upsert", 0, 1)],
@@ -164,9 +168,12 @@ def test_input_errors():
     with pytest.raises(ValueError, match="entries"):
         tm.truss_maintain((n, ce), PHI0[name][:-1], [("insert", 0, 1)],
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tm.truss_maintain((n, ce), PHI0[name], [], mesh=object(),
-                          device="cpu")
+    with one_rank_mesh(tmp_path) as mesh:
+        res = tm.truss_maintain((n, ce), PHI0[name], [], mesh=mesh,
+                                device="cpu")
+        np.testing.assert_array_equal(res.phi, PHI0[name])
+        _check(n, ce, PHI0[name], _steps("mixed", n, ce, seed=7),
+               mesh=mesh, mesh_axis="data")
 
 
 def test_truss_decompose_edits_dispatch():

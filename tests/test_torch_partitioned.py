@@ -149,16 +149,27 @@ def test_split_bucket_lanes_equal():
                 assert sum(s.n_lanes for s in ts) == tbk.n_lanes
 
 
-def test_unported_support_arguments_raise():
-    """``mesh`` still raises naming its ROADMAP item.  ``store=``,
-    ``partitioner="locality"`` and ``engine="perpart"`` have been ported
-    since and give the reference's supports and phi."""
+def test_unported_support_arguments_raise(tmp_path):
+    """Every argument once unported gives the reference's answer: ``mesh=``
+    (a one-rank gloo mesh in this process) the reference's one-device
+    supports and phi, ``store=``, ``partitioner="locality"`` and
+    ``engine="perpart"`` the reference's supports and phi."""
     from repro.core.store import InMemoryStore as JInMemoryStore
     from repro_torch.core.store import InMemoryStore
+    from tests.torch_mesh import one_rank_mesh
 
     name, n, edges = CORPUS[0]
-    with pytest.raises(NotImplementedError, match="A13"):
-        tbu.partitioned_support(n, edges, 64, mesh=object())
+    with one_rank_mesh(tmp_path) as mesh:
+        sup, st = tbu.partitioned_support(n, edges, 64, mesh=mesh,
+                                          with_stats=True)
+        np.testing.assert_array_equal(
+            sup, jbu.partitioned_support(n, edges, 64))
+        assert st.devices == 1
+        td = ttd.top_down_decompose(n, edges, budget=64, device="cpu",
+                                    mesh=mesh)
+        np.testing.assert_array_equal(
+            td.phi, jtd.top_down_decompose(n, edges, budget=64).phi)
+        assert td.stats.sharded_rounds > 0
     np.testing.assert_array_equal(
         tbu.partitioned_support(n, edges, 64, engine="perpart"),
         jbu.partitioned_support(n, edges, 64, engine="perpart"))
@@ -168,9 +179,6 @@ def test_unported_support_arguments_raise():
             jbu.partitioned_support(n, edges, 64, store=jstore))
     with pytest.raises(ValueError):
         tbu.partitioned_support(n, edges, 64, engine="bogus")
-    with pytest.raises(NotImplementedError, match="A13"):
-        ttd.top_down_decompose(n, edges, budget=64, device="cpu",
-                               mesh=object())
     with InMemoryStore() as store, JInMemoryStore() as jstore:
         np.testing.assert_array_equal(
             ttd.top_down_decompose(n, edges, budget=64, device="cpu",

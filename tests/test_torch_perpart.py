@@ -107,11 +107,16 @@ def _perpart_calls(n, ce):
                                     "partitioned_support"])
 @pytest.mark.parametrize("what", ["mesh", "store", "checkpointing"])
 def test_perpart_rejects_mesh_store_checkpointing(tmp_path, driver, what):
+    from tests.torch_mesh import one_rank_mesh
+
     name, n, ce = CORPUS[0]
     call = _perpart_calls(n, ce)[driver]
     if what == "mesh":
-        kw, match = dict(mesh=object()), "mesh= requires the batched"
-    elif what == "store":
+        with one_rank_mesh(tmp_path) as mesh:
+            with pytest.raises(ValueError, match="mesh= requires the batched"):
+                call(mesh=mesh)
+        return
+    if what == "store":
         kw, match = dict(store=InMemoryStore()), "store= requires the batched"
     elif driver == "bottom_up_decompose":
         kw, match = dict(checkpoint_dir=str(tmp_path)), "checkpointing"
@@ -123,13 +128,25 @@ def test_perpart_rejects_mesh_store_checkpointing(tmp_path, driver, what):
 
 @pytest.mark.parametrize("driver", ["lower_bounding", "bottom_up_decompose",
                                     "partitioned_support"])
-def test_unknown_engine_and_batched_mesh(driver):
+def test_unknown_engine_and_batched_mesh(driver, tmp_path):
     """An unknown engine raises ``ValueError``, as in the reference; a mesh
-    on the batched engine is not ported (``NotImplementedError``, A13)."""
+    (a one-rank gloo mesh in this process) gives the reference's one-device
+    result on the batched engine and ``ValueError`` on the per-part one."""
+    from tests.torch_mesh import one_rank_mesh
+
     name, n, ce = CORPUS[0]
-    fn = getattr(tbu, driver)
+    fn, jfn = getattr(tbu, driver), getattr(jbu, driver)
     extra = {} if driver == "partitioned_support" else dict(device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         fn(n, ce, 16, engine="pallas", **extra)
-    with pytest.raises(NotImplementedError, match="A13"):
-        fn(n, ce, 16, mesh=object(), **extra)
+    with one_rank_mesh(tmp_path) as mesh:
+        with _quiet():
+            got, want = fn(n, ce, 16, mesh=mesh, **extra), jfn(n, ce, 16)
+        for f in ("phi", "lb"):
+            if hasattr(want, f):
+                np.testing.assert_array_equal(getattr(got, f),
+                                              getattr(want, f))
+        if driver == "partitioned_support":
+            np.testing.assert_array_equal(got, want)
+        with pytest.raises(ValueError, match="mesh= requires"):
+            fn(n, ce, 16, engine="perpart", mesh=mesh, **extra)

@@ -348,13 +348,13 @@ def test_moe_configs_raise(arch):
     dict(phi0=np.zeros(3)), dict(partitioner="locality", engine="bottom-up"),
     dict(engine="top-down")])
 def test_unported_arguments_raise(kw, tmp_path):
-    """Unported arguments raise naming their ROADMAP item.  Eight cases have
-    been ported since and check what replaced the error, as in the
-    reference: on the in-memory route ``checkpoint_dir``, ``store`` and
-    ``host_memory_budget`` warn and are ignored and ``resume`` is ignored;
-    ``engine="top-down"`` and ``partitioner="locality"`` give the
-    reference's phi; an edit with an unknown op, and ``phi0`` without
-    ``edits``, raise ``ValueError`` (maintenance)."""
+    """Every argument once unported now does what the reference does with
+    the same call: on the in-memory route ``checkpoint_dir``, ``store`` and
+    ``host_memory_budget`` warn and are ignored, and ``resume``, ``mesh``
+    and ``mesh_axes`` are ignored; ``engine="top-down"`` and
+    ``partitioner="locality"`` give the reference's phi; an edit with an
+    unknown op, and ``phi0`` without ``edits``, raise ``ValueError``
+    (maintenance)."""
     e = np.array([[0, 1], [1, 2], [0, 2]])
     want = jpeel.truss_decompose(3, e, **{
         k: v for k, v in kw.items() if k in ("engine", "partitioner")})
@@ -374,13 +374,11 @@ def test_unported_arguments_raise(kw, tmp_path):
         with pytest.raises(ValueError, match="phi0|insert.*delete"):
             tpeel.truss_decompose(3, e, device="cpu", **kw)
         return
-    elif ("resume" in kw or kw == dict(engine="top-down")
-          or "partitioner" in kw):
-        got = tpeel.truss_decompose(3, e, device="cpu", **kw)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpeel.truss_decompose(3, e, device="cpu", **kw)
-        return
+        # resume, engine="top-down", partitioner, and the mesh arguments,
+        # which the in-memory route ignores (as the reference does)
+        assert jpeel.truss_decompose(3, e, **kw).tolist() == want.tolist()
+        got = tpeel.truss_decompose(3, e, device="cpu", **kw)
     np.testing.assert_array_equal(got, want)
 
 
@@ -419,8 +417,16 @@ def test_invalid_arguments_rejected(tmp_path):
         with pytest.raises(ValueError, match="budget"):
             ttd.top_down_decompose(3, e, budget=None, device="cpu",
                                    store=store)
-    for fn in (tbu.bottom_up_decompose, ttd.top_down_decompose):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(3, e, 64, device="cpu", checkpoint_dir=str(tmp_path),
-               mesh=object())
+    # a mesh (a one-rank gloo mesh in this process) with a journal: the
+    # reference's phi, and the journal written
+    from tests.torch_mesh import one_rank_mesh
+
+    with one_rank_mesh(tmp_path) as mesh:
+        for fn, jfn in ((tbu.bottom_up_decompose, jbu.bottom_up_decompose),
+                        (ttd.top_down_decompose, jtd.top_down_decompose)):
+            ckpt_dir = tmp_path / fn.__name__
+            res = fn(3, e, 64, device="cpu", checkpoint_dir=str(ckpt_dir),
+                     mesh=mesh)
+            np.testing.assert_array_equal(res.phi, jfn(3, e, 64).phi)
+            assert res.stats.checkpoints > 0 and list(ckpt_dir.iterdir())
     assert len(tpeel.truss_decompose(3, np.zeros((0, 2)), device="cpu")) == 0
