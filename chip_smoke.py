@@ -10,8 +10,8 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    build of every CUDA kernel under ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together); for every B3 instantiation, its
    registers, spills and shared memory (ptxas) and its tensor-core
-   instructions (``cuobjdump -sass``): the bf16 D = 256 one must have some
-   and spill nothing; the same for B1 and B2, whose SASS must hold int8 MMA
+   instructions (``cuobjdump -sass``): the bf16 D = 256 (gemma3-4b) and D =
+   128 (the MoE configs) ones must have some and spill nothing; the same for B1 and B2, whose SASS must hold int8 MMA
    instructions (B2) and neither of which may spill; and the registers,
    spills and static shared memory of every B4 instantiation and of its
    gather probe, none of which may spill;
@@ -136,17 +136,47 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    logits must be finite, and the prefill's last-token logits must agree
    with the plain attention path's within ``LOGITS_TOL``.  It also prints
    how far the plain path's logits move with a window off by one key and
-   with no window at all, as a measure of what that limit can see.
+   with no window at all, as a measure of what that limit can see;
+   7b. MoE serving: moonshot-v1-16b-a3b at full width (all 48 layers,
+       d_model 2048, 16/16 heads of 128, 64 experts of 1,408, top 6 plus 2
+       shared, vocab 163,840; 28,888,467,456 parameters in bf16, the router
+       float32; random weights from a generator seeded with 0, the flash
+       kernel on) serves phase 7's traffic through ``serve.generate``, after
+       phase 7's parameters are freed: the parameter count must be
+       ``param_count()``, B3 must launch once per layer (48) and nothing
+       else, the logits must be finite.  It prints the init time, prefill
+       wall, decode tokens/s beside a step's byte bound, the peak device
+       memory and the share of slots dropped per layer (min, median, max)
+       in the prefill and in the decode steps (``RouteRecorder`` wraps the
+       routing helper, ``moe_route``).  Then two prefills on the plain
+       attention path, one routing on its own values and one replaying the
+       flash prefill's routing: it prints the kept slots whose routing
+       differs per layer and the requests whose routing differs, and holds
+       the last-token logits to the flash prefill's within MOE_LOGITS_TOL on
+       the requests routed alike in every layer and, with the routing
+       replayed, on every request;
+   7c. the same for phi3.5-moe-42b-a6.6b at its full widths (d_model 4096,
+       32/8 heads of 128, 16 experts of 6,400, top 2, no shared expert,
+       vocab 32,064) with its depth cut from 32 to 8 layers (its 78.0 GiB of
+       bf16 parameters do not fit one card beside a cache): B3 8 launches,
+       group 4;
+   7d. one full-width MoE layer, card against host: ``_moe_ffn`` with 7b's
+       layer-0 FFN weights on MOE_ROWS rows of that layer's actual input
+       (bf16) on the card and on the CPU; the experts, slots and kept flags
+       equal (a token whose router margin is below ROUTE_EPS excused), the
+       outputs within MOE_FFN_TOL, aux within MOE_AUX_TOL.
 
 Four main paths: the truss path (phases 3-5d), the maintenance path (8a),
-the mesh path (9a) and the LM path (phase 7); 5e-5h, 8b-8e, 9b and 9c read
-their own launches, each through ``run_phase``.
+the mesh path (9a) and the LM path (phase 7, and 7b and 7c, each read on
+its own); 5e-5h, 8b-8e, 9b and 9c read their own launches, each through
+``run_phase``.
 Every launch counter is set to 0 just before each and read just after it,
 and each kernel of the path must have launched (B1 and B2 on the truss
 path, B1 on the maintenance and the mesh paths, B3 on the LM path; no
 model path reaches B4).  The kernels are then
 checked and timed again on the largest inputs their path gave them (B3:
-the largest of its global and of its windowed calls).  The line before
+the largest of its global and of its windowed calls, and at D = 128 the
+largest call of 7b and of 7c).  The line before
 the last is a JSON object listing every kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -270,6 +300,37 @@ B4_CASES = (("float32", 18, 1000, 100, 0), ("bf16", 18, 1000, 100, 0),
 # by one key moves these logits).  B3 itself is held to its plain version
 # in float32 in phase 2 and on the path's own inputs after it.
 LOGITS_TOL = dict(rtol=0.05, atol=0.15)
+
+# phases 7b and 7c: MoE serving at full width, (tag, arch, layers kept;
+# None: all).  phi3.5-moe's 32 layers hold 78.0 GiB of bf16 parameters, more
+# than one card holds beside a cache: its depth is cut to 8 layers (19.9
+# GiB) and its widths kept.
+MOE_SERVE = (("7b", "moonshot-v1-16b-a3b", None),
+             ("7c", "phi3.5-moe-42b-a6.6b", 8))
+# phase 7's traffic: requests, prompt tokens, greedy steps, max_seq
+LM_TRAFFIC = (8, 2048, 32, 2080)
+# 7b, 7c: last-token logits of the flash prefill against the plain path's,
+# on the requests whose routing agreed in every layer and, all of them, with
+# the flash prefill's routing replayed on the plain path.  bf16 noise flips
+# some token's experts in every request: on an H100 80GB HBM3 at 700 W no
+# request of 7b or 7c routed alike in every layer (about 50,000 of 7b's
+# token-layer pairs a request differ), and the flash and plain logits
+# differed by 0.252 at most (7b; logits up to 4.22).  With the routing
+# replayed they differed by 0.0859 at most (7b; 7c 0.0391), so the limit
+# (phase 7's) leaves about twice that.
+MOE_LOGITS_TOL = dict(rtol=0.05, atol=0.15)
+# 7d: rows of 7b's layer-0 FFN input that _moe_ffn takes on the card and on
+# the host.  A token whose router probabilities (float32) have two of their
+# K + 1 largest closer than ROUTE_EPS may order or choose its experts
+# differently on the two: the card's and the host's probabilities differed
+# by 1.5e-7 at most (H100 80GB HBM3, 700 W).  The outputs of the tokens
+# routed alike differ where bf16 rounds matmuls summed in other orders: one
+# or two bf16 steps (0.0156 at |out| up to 2.03 on that card); aux by a
+# float32 sum's rounding.
+MOE_ROWS = 256
+ROUTE_EPS = 1e-5
+MOE_FFN_TOL = dict(rtol=2 ** -6, atol=2 ** -6)
+MOE_AUX_TOL = dict(rtol=1e-5, atol=0.0)
 
 # phi digests of the JAX package (repro.core.peel.truss_decompose, default
 # route), made on the CPU from the repository root with:
@@ -486,8 +547,9 @@ def sass_mma_counts(lib: Path) -> dict:
 
 def b3_build_check(torch, build, ak) -> dict:
     """Print what ptxas made of every B3 instantiation and its tensor-core
-    instructions; raise unless the bf16 D = 256 instantiation runs on tensor
-    cores and spills nothing.  Returns that instantiation's figures."""
+    instructions; raise unless the bf16 D = 256 (gemma3-4b) and D = 128 (the
+    MoE configs) instantiations run on tensor cores and spill nothing.
+    Returns their figures by D."""
     regs = ptxas_kernels(build.report("flash_attention"))
     mma = sass_mma_counts(build.target("flash_attention"))
     rows = {}
@@ -507,17 +569,20 @@ def b3_build_check(torch, build, ak) -> dict:
             f"bytes spill stores, {r['stack']} bytes stack, "
             f"{r['dynamic_smem']} bytes dynamic shared memory, HGMMA "
             f"{r['hgmma']}, HMMA {r['hmma']}")
-    top = rows.get(("tc", 256))
-    if top is None:
-        raise AssertionError("no bf16 D = 256 instantiation of B3 in the "
-                             "ptxas report")
-    if top["hgmma"] + top["hmma"] == 0:
-        raise AssertionError("B3's bf16 D = 256 instantiation has no tensor-"
-                             "core instruction in its SASS")
-    if top["spill_stores"]:
-        raise AssertionError(f"B3's bf16 D = 256 instantiation spills "
-                             f"{top['spill_stores']} bytes")
-    return top
+    out = {}
+    for d in (256, 128):
+        top = rows.get(("tc", d))
+        if top is None:
+            raise AssertionError(f"no bf16 D = {d} instantiation of B3 in "
+                                 f"the ptxas report")
+        if top["hgmma"] + top["hmma"] == 0:
+            raise AssertionError(f"B3's bf16 D = {d} instantiation has no "
+                                 f"tensor-core instruction in its SASS")
+        if top["spill_stores"]:
+            raise AssertionError(f"B3's bf16 D = {d} instantiation spills "
+                                 f"{top['spill_stores']} bytes")
+        out[d] = top
+    return out
 
 
 def b1b2_build_check(build) -> dict:
@@ -1608,6 +1673,308 @@ def mesh_two_ranks(run_phase, timeout_s: int = 420) -> dict:
     return dict(ranks=ranks)
 
 
+class RouteRecorder:
+    """Wraps the transformer's ``moe_route`` as ``Probe`` wraps a kernel:
+    keeps every call's ``Routing`` (``calls``), and the rows
+    ``[::stride][:rows]`` of the first ``_moe_ffn`` call's input (layer 0
+    of the first prefill; one copy, its only launch).  With ``replay`` (an
+    earlier run's ``calls``), the n-th call returns the n-th of those
+    instead of routing: the run takes that run's experts, slots and
+    weights."""
+
+    def __init__(self, lm, rows: int = 0, stride: int = 1, replay=None):
+        self.lm, self.rows, self.stride = lm, rows, stride
+        self.replay = replay
+        self.route_fn, self.ffn_fn = lm.moe_route, lm._moe_ffn
+        self.calls: list = []
+        self.first_rows = None
+        lm.moe_route, lm._moe_ffn = self._route, self._ffn
+
+    def _route(self, xt, router, cfg):
+        r = (self.route_fn(xt, router, cfg) if self.replay is None
+             else self.replay[len(self.calls)])
+        self.calls.append(r)
+        return r
+
+    def _ffn(self, x, lp, cfg):
+        if self.rows and self.first_rows is None:
+            self.first_rows = x.reshape(-1, x.shape[-1])[
+                ::self.stride][:self.rows].clone()
+        return self.ffn_fn(x, lp, cfg)
+
+    def close(self) -> None:
+        self.lm.moe_route, self.lm._moe_ffn = self.route_fn, self.ffn_fn
+
+
+def spread(xs) -> dict:
+    return dict(min=min(xs), median=float(np.median(xs)), max=max(xs))
+
+
+def routing_diff(torch, a, b, n_req: int, K: int) -> dict:
+    """Two prefills' routings, layer by layer: the slots kept in either run
+    whose expert or kept flag differs (per layer), the (token, layer) pairs
+    whose experts or kept flags differ (per request), and the requests whose
+    last token differs in some layer."""
+    kept, per_req, last = [], 0, 0
+    for r1, r2 in zip(a, b):
+        d = (r1.tope.reshape(-1) != r2.tope.reshape(-1)) | (r1.keep
+                                                            != r2.keep)
+        kept.append(((r1.keep | r2.keep) & d).sum())
+        tok = d.view(-1, K).any(1).view(n_req, -1)
+        per_req = per_req + tok.sum(1)
+        last = last + tok[:, -1].long()
+    return dict(kept_slots_differ=torch.stack(kept).tolist(),
+                token_layers_differ=per_req.tolist(),
+                last_token_differs=[bool(x) for x in last.tolist()])
+
+
+def decode_bound_ms(cfg, params, calls, n_req: int, steps: int,
+                    prompt_len: int) -> dict:
+    """Least time of one decode step, bytes over the memory rate: every
+    parameter but the embedding (n_req rows of it), and the cache's keys and
+    values up to the step's position (the mean over the steps).  ``all``:
+    every expert read, as the batched expert products over E do; ``kept``:
+    only the experts that kept a slot in that step (``calls``: the decode
+    steps' routing records)."""
+    L, d, fe = cfg.n_layers, cfg.d_model, cfg.d_ff_expert
+    isz = 2                                      # bf16
+    leaves = [a for k, a in params.items() if k not in ("layers", "embed")]
+    leaves += list(params["layers"].values())
+    weights = sum(a.numel() * a.element_size() for a in leaves) \
+        + n_req * d * isz
+    pos = prompt_len + (steps + 1) / 2
+    cache = 2 * L * n_req * pos * cfg.n_kv * cfg.d_head * isz
+    expert = 3 * d * fe * isz
+    kept = sum(int(r.keep.sum()) for r in calls) / steps    # experts used
+    unused = L * cfg.n_experts - kept
+    return dict(all=(weights + cache) / HBM_BYTES_PER_S * 1e3,
+                kept=(weights + cache - unused * expert)
+                / HBM_BYTES_PER_S * 1e3,
+                weight_bytes=weights, cache_bytes=cache,
+                experts_kept_per_step=kept)
+
+
+def moe_serve(torch, lm, serve, cfg, tag: str, run_phase, zero_counts,
+              phase_launches, ak, dev, keep_layer0: bool = False):
+    """Phases 7b and 7c: ``cfg`` served at full width through
+    ``serve.generate`` with the flash kernel on (phase 7's traffic), then a
+    prefill on the plain attention path.  Checks the parameter count, B3
+    once per layer and nothing else launched, finite logits of the right
+    shapes, and the two prefills' last-token logits within MOE_LOGITS_TOL on
+    the requests whose routing agreed in every layer; prints the slots
+    dropped by layer and the routing differences.  Returns (summary, the B3
+    probe of the serve, and with ``keep_layer0`` (MOE_ROWS rows of the layer-0
+    FFN input, that layer's FFN weights on the host))."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [a for k, a in params.items() if k != "layers"]
+    leaves += list(params["layers"].values())
+    n_params = sum(a.numel() for a in leaves)
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{tag}: {n_params} parameters, config says "
+                             f"{cfg.param_count()}")
+    gib = sum(a.numel() * a.element_size() for a in leaves) / 2 ** 30
+    say(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_q}/{cfg.n_kv} heads of {cfg.d_head}, {cfg.n_experts} "
+        f"experts of {cfg.d_ff_expert}, top {cfg.top_k} + "
+        f"{cfg.n_shared_experts} shared, vocab {cfg.vocab}: {n_params:,} "
+        f"parameters, {gib:.2f} GiB (bf16, the router float32), initialised "
+        f"on the card in {init_s:.2f} s")
+    n_req, prompt_len, new_tokens, max_seq = LM_TRAFFIC
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (n_req, prompt_len)).astype(np.int32)
+    probe = Probe(torch, ak, "flash_attention",
+                  size=lambda q, k, v, causal, window: q.numel() *
+                  visible_pairs(q.shape[2], window),
+                  bound=lambda q, k, v, causal, window: b3_bound(q, k,
+                                                                 window)[0])
+    rec = RouteRecorder(lm, MOE_ROWS, n_req * prompt_len // MOE_ROWS)
+    serve_tag = f"{tag} serve {cfg.name}"
+    zero_counts()
+    gen = run_phase(serve_tag, lambda: serve.generate(
+        params, prompts, cfg, new_tokens, max_seq, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    rec.close()
+    b3_ms = probe.close()
+    launches = phase_launches[serve_tag]
+    if launches["B3"] != cfg.n_layers or len(probe.events) != cfg.n_layers \
+            or any(launches[k] for k in ("B1", "B2", "B4")):
+        raise AssertionError(f"{tag}: launches {launches}; B3 must launch "
+                             f"once in each of {cfg.n_layers} layers, and "
+                             f"nothing else")
+    flash = gen.prefill_logits.float()
+    if gen.tokens.shape != (n_req, new_tokens) or \
+            flash.shape != (n_req, cfg.vocab) or \
+            gen.logits.shape != (n_req, cfg.vocab) or \
+            not bool(torch.isfinite(flash).all()) or \
+            not bool(torch.isfinite(gen.logits.float()).all()):
+        raise AssertionError(f"{tag}: output of the wrong shape or not "
+                             f"finite")
+    L = cfg.n_layers
+    if len(rec.calls) != L * (1 + new_tokens):
+        raise AssertionError(f"{tag}: {len(rec.calls)} routing calls, not "
+                             f"{L * (1 + new_tokens)}")
+    drop = torch.stack([1 - r.keep.float().mean()
+                        for r in rec.calls]).tolist()
+    bound = decode_bound_ms(cfg, params, rec.calls[L:], n_req, new_tokens,
+                            prompt_len)
+    out = dict(
+        params=n_params, gib=gib, init_s=init_s,
+        prefill_ms=gen.prefill_s * 1e3,
+        decode_step_ms=gen.decode_s * 1e3 / new_tokens,
+        decode_tokens_per_s=n_req * new_tokens / gen.decode_s,
+        decode_bound_ms=bound, peak_mib=peak / 2 ** 20,
+        b3_launches=launches["B3"], b3_ms=b3_ms, b3_bound_ms=probe.bound_ms,
+        capacity=dict(prefill=rec.calls[0].capacity,
+                      decode=rec.calls[L].capacity),
+        dropped_prefill=spread(drop[:L]),
+        dropped_decode_step1=spread(drop[L:2 * L]),
+        dropped_decode=spread(drop[L:]))
+    say(f"[{tag}] {n_req} requests x {prompt_len} prompt tokens: prefill "
+        f"wall {out['prefill_ms']:.1f} ms; {new_tokens} decode steps "
+        f"{out['decode_step_ms']:.2f} ms a step = "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s (a step's byte bound "
+        f"{bound['all']:.2f} ms reading every expert, {bound['kept']:.2f} ms "
+        f"reading the {bound['experts_kept_per_step']:.0f} experts that kept "
+        f"a slot); peak device memory {out['peak_mib']:.1f} MiB; B3 "
+        f"{launches['B3']} launches, {b3_ms:.3f} device ms in its calls "
+        f"(summed bounds {probe.bound_ms:.3f} ms); first request's tokens "
+        f"{gen.tokens[0, :8].tolist()}...")
+    say(f"[{tag}] capacity {out['capacity']}; share of slots dropped by "
+        f"layer: prefill {out['dropped_prefill']}, first decode step "
+        f"{out['dropped_decode_step1']}, all {new_tokens} decode steps "
+        f"{out['dropped_decode']}")
+
+    # the plain path twice: routing on its own values, then replaying the
+    # flash prefill's routing, layer by layer
+    plain_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
+    runs = {}
+    for mode, replay in (("own", None), ("replayed", rec.calls[:L])):
+        rec2 = RouteRecorder(lm, replay=replay)
+        t0 = time.perf_counter()
+        logits = lm.prefill(params, prompts, plain_cfg, max_seq=max_seq,
+                            device=dev)[1].float()
+        torch.cuda.synchronize()
+        out[f"plain_prefill_{mode}_ms"] = (time.perf_counter() - t0) * 1e3
+        rec2.close()
+        runs[mode] = (logits, rec2.calls)
+    plain, calls = runs["own"]
+    rd = routing_diff(torch, rec.calls[:L], calls, n_req, cfg.top_k)
+    agree = [n == 0 for n in rd["token_layers_differ"]]
+    req_err = (flash - plain).abs().max(1).values.tolist()
+    pinned = runs["replayed"][0]
+    pinned_err = (flash - pinned).abs().max(1).values.tolist()
+    held = torch.tensor(agree, device=flash.device)
+    out.update(rd, requests_routing_differ=agree.count(False),
+               logits_err_by_request=req_err,
+               logits_err_routing_replayed=pinned_err,
+               max_abs_plain=float(plain.abs().max()),
+               logits_err_held=max((e for e, a in zip(req_err, agree) if a),
+                                   default=None))
+    say(f"[{tag}] plain-path prefill {out['plain_prefill_own_ms']:.1f} ms "
+        f"({out['plain_prefill_replayed_ms']:.1f} ms replaying the routing); "
+        f"kept slots whose routing differs from the flash prefill's, by "
+        f"layer: {rd['kept_slots_differ']}; (token, layer) pairs that differ "
+        f"by request: {rd['token_layers_differ']}; last token differs: "
+        f"{rd['last_token_differs']}")
+    say(f"[{tag}] last-token logits, max |plain| {out['max_abs_plain']:.4f}; "
+        f"max |flash - plain| by request {[round(e, 4) for e in req_err]}, "
+        f"{agree.count(True)} of {n_req} requests routed alike in every "
+        f"layer and held; with the flash routing replayed "
+        f"{[round(e, 4) for e in pinned_err]}, all held (tol "
+        f"{MOE_LOGITS_TOL})")
+    if not torch.allclose(flash[held], plain[held], **MOE_LOGITS_TOL):
+        raise AssertionError(f"{tag}: the flash prefill's logits differ from "
+                             f"the plain path's beyond MOE_LOGITS_TOL on a "
+                             f"request routed alike")
+    if not torch.allclose(flash, pinned, **MOE_LOGITS_TOL):
+        raise AssertionError(f"{tag}: the flash prefill's logits differ from "
+                             f"the plain path's under the same routing beyond "
+                             f"MOE_LOGITS_TOL")
+    layer0 = None
+    if keep_layer0:
+        layer0 = (rec.first_rows, {
+            k: a[0].cpu() for k, a in params["layers"].items()
+            if k in ("ln2", "router") or k.startswith(("we_", "ws_"))})
+    del params, gen, flash, plain, pinned, runs, calls, rec, rec2
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"[{tag}] wall {out['wall_s']:.1f} s")
+    return out, probe, layer0
+
+
+def moe_layer_check(torch, lm, cfg, rows, lp_host, dev) -> dict:
+    """Phase 7d: ``_moe_ffn`` of one full-width layer on the card and on
+    the host, on ``rows`` (bf16) of 7b's layer-0 FFN input.  The experts,
+    slots and kept flags must be equal, except for tokens whose router
+    margin is below ROUTE_EPS (a changed expert set re-ranks the later slots
+    of its experts, so slots are compared up to the first such token); the
+    outputs of the tokens routed alike within MOE_FFN_TOL, aux within
+    MOE_AUX_TOL."""
+    t_phase = time.perf_counter()
+    T, K = rows.shape[0], cfg.top_k
+    lp_dev = {k: a.to(dev) for k, a in lp_host.items()}
+    x_dev, x_host = rows[None], rows.cpu()[None]
+    t0 = time.perf_counter()
+    out_d, aux_d = lm._moe_ffn(x_dev, lp_dev, cfg)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out_h, aux_h = lm._moe_ffn(x_host, lp_host, cfg)
+    host_ms = (time.perf_counter() - t0) * 1e3
+
+    def route(x, lp):
+        xt = lm.cm.rms_norm(x, lp["ln2"], cfg.norm_eps).reshape(T, -1)
+        return lm.moe_route(xt, lp["router"], cfg)
+
+    rd, rh = route(x_dev, lp_dev), route(x_host, lp_host)
+    top = rh.probs.sort(-1, descending=True).values[:, :K + 1]
+    near = (top[:, :-1] - top[:, 1:]).min(-1).values < ROUTE_EPS
+    tope_d = rd.tope.cpu()
+    order_diff = (tope_d != rh.tope).any(1)
+    if bool((order_diff & ~near).any()):
+        raise AssertionError("7d: the card and the host route a token with a "
+                             "router margin above ROUTE_EPS differently")
+    (sd, od), (sh, oh) = tope_d.sort(1), rh.tope.sort(1)
+    set_diff = (sd != sh).any(1)
+    slot_d = rd.slot.cpu().view(T, K).gather(1, od)
+    slot_h = rh.slot.view(T, K).gather(1, oh)
+    keep_d = rd.keep.cpu().view(T, K).gather(1, od)
+    keep_h = rh.keep.view(T, K).gather(1, oh)
+    first = int(set_diff.nonzero()[0, 0]) if bool(set_diff.any()) else T
+    if not (torch.equal(slot_d[:first], slot_h[:first])
+            and torch.equal(keep_d[:first], keep_h[:first])):
+        raise AssertionError("7d: slots or kept flags differ between the "
+                             "card and the host")
+    same = ~set_diff & (keep_d == keep_h).all(1)
+    got, want = out_d[0].float().cpu()[same], out_h[0].float()[same]
+    res = dict(
+        rows=T, capacity=rd.capacity, dropped=int((~rh.keep).sum()),
+        near_margin_rows=int(near.sum()), order_differs=int(order_diff.sum()),
+        set_differs=int(set_diff.sum()), rows_compared=int(same.sum()),
+        max_abs_probs_diff=float((rd.probs.cpu() - rh.probs).abs().max()),
+        out_err=float((got - want).abs().max()),
+        max_abs_out=float(want.abs().max()),
+        aux_card=float(aux_d), aux_host=float(aux_h),
+        card_ms=card_ms, host_ms=host_ms)
+    say(f"[7d] one {cfg.name} layer on {T} rows of 7b's layer-0 FFN input "
+        f"(bf16), card against host: {res}")
+    if not torch.allclose(got, want, **MOE_FFN_TOL):
+        raise AssertionError(f"7d: _moe_ffn's output differs between the card "
+                             f"and the host beyond MOE_FFN_TOL (max abs err "
+                             f"{res['out_err']})")
+    if not np.isclose(res["aux_card"], res["aux_host"], **MOE_AUX_TOL):
+        raise AssertionError("7d: aux differs between the card and the host")
+    del lp_dev
+    res["wall_s"] = time.perf_counter() - t_phase
+    say(f"[7d] wall {res['wall_s']:.1f} s")
+    return res
+
+
 def main(argv) -> int:
     import torch
     import torch.distributed as tdist
@@ -2229,9 +2596,9 @@ def main(argv) -> int:
                              "finite")
     plain_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
     t0 = time.perf_counter()
-    _, plain_logits = lm.prefill(params, prompts, plain_cfg, max_seq=max_seq,
-                                device=dev)
-    plain_logits = plain_logits.float()
+    # the logits alone: a cache kept alive here would crowd phase 7b
+    plain_logits = lm.prefill(params, prompts, plain_cfg, max_seq=max_seq,
+                              device=dev)[1].float()
     torch.cuda.synchronize()
     diff = (flash_logits - plain_logits).abs()
     say(f"[7] plain-path prefill (chunked/banded attention) "
@@ -2245,8 +2612,8 @@ def main(argv) -> int:
     # what LOGITS_TOL can see: the plain path with its window rule broken
     for label, window in (("a window off by one key", cfg.window - 1),
                           ("no window", None)):
-        _, alt = lm.prefill(params, prompts, dataclasses.replace(
-            plain_cfg, window=window), max_seq=max_seq, device=dev)
+        alt = lm.prefill(params, prompts, dataclasses.replace(
+            plain_cfg, window=window), max_seq=max_seq, device=dev)[1]
         d_alt = (alt.float() - plain_logits).abs()
         say(f"[7] plain path with {label}: last-token logits move by "
             f"{float(d_alt.max()):.4f} at most, mean {float(d_alt.mean()):.5f}"
@@ -2254,6 +2621,23 @@ def main(argv) -> int:
             f"{bool(torch.allclose(alt.float(), plain_logits, **LOGITS_TOL))}")
         del alt, d_alt
     del params, gen_out, flash_logits, plain_logits, diff
+
+    # -- phases 7b-7d: MoE serving at full width (phase 7's traffic) --------
+    moe, moe_probes, moe_cfgs = {}, {}, {}
+    for tag, arch, n_layers in MOE_SERVE:
+        cfg = dataclasses.replace(registry.get_config(arch),
+                                  use_flash_kernel=True)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        moe_cfgs[tag] = cfg
+        moe[tag], moe_probes[tag], got = moe_serve(
+            torch, lm, serve, cfg, tag, run_phase, zero_counts,
+            phase_launches, ak, dev, keep_layer0=tag == "7b")
+        if got is not None:
+            layer0 = got
+    moe["7d"] = moe_layer_check(torch, lm, moe_cfgs["7b"], *layer0, dev)
+    del layer0
+    say(f"[7b-7d] {json.dumps(moe)}")
 
     # -- kernels on the largest inputs the main path gave them ---------------
     kernels = []
@@ -2360,10 +2744,40 @@ def main(argv) -> int:
     by_window = [{k: r[k] for k in ("window", "max_abs_err", "float32_err",
                                     "ms", "plain_ms", "library_ms",
                                     "bound_ms")} for r in b3_rows]
+    # B3 at D = 128 on the MoE paths: the largest call of 7b (MHA) and of 7c
+    # (GQA, group 4); every call of a path has its shape.  bf16, and upcast
+    # to float32 (strides kept)
+    d128 = {}
+    for t, probe in moe_probes.items():
+        (q, k, v), _ = probe.largest[None]
+        bound, by = b3_bound(q, k, None)
+        d128[t] = row = dict(
+            shape=[*q.shape, k.shape[1]], strides=list(q.stride()),
+            max_abs_err=check_b3(q, k, v, None),
+            float32_err=check_b3(q.float(), k.float(), v.float(), None),
+            ms=time_ms(torch, lambda: ak.flash_attention(q, k, v), 5),
+            plain_ms=time_ms(torch, lambda: aref.mha_reference(q, k, v), 3),
+            library_ms=time_ms(torch, lambda: sdpa(q, k, v, None), 5),
+            bound_ms=bound, bound_by=by, launches=moe[t]["b3_launches"],
+            total_ms=moe[t]["b3_ms"], total_bound_ms=moe[t]["b3_bound_ms"])
+        say(f"[{t}] B3 on the path's largest call {row['shape']} strides "
+            f"{row['strides']}: max abs err bf16 {row['max_abs_err']:.3g}, "
+            f"float32 {row['float32_err']:.3g}; kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} "
+            f"ms, bound {bound:.4f} ms ({by})")
+        del q, k, v
+    del moe_probes
+    b3_paths = {"gemma3-4b (7)": lm_launches["flash_attention"],
+                **{f"{moe_cfgs[t].name} ({t})": moe[t]["b3_launches"]
+                   for t in moe_cfgs}}
     b3 = max(b3_rows, key=lambda r: r["bound_ms"])
-    b3.update(max_abs_err=max(r["max_abs_err"] for r in b3_rows),
+    b3.update(launches=sum(b3_paths.values()), launches_by_path=b3_paths,
+              max_abs_err=max(r["max_abs_err"]
+                              for r in b3_rows + list(d128.values())),
+              d128=d128,
               total_ms=b3_ms, total_bound_ms=p3.bound_ms,
-              by_window=by_window, design=B3_DESIGN, bf16_d256=b3_tc)
+              by_window=by_window, design=B3_DESIGN, bf16_d256=b3_tc[256],
+              bf16_d128=b3_tc[128])
     kernels.append(b3)
     kernels.append(b4)
     say(f"[all] wall {time.perf_counter() - t_all:.1f} s; {smi}")

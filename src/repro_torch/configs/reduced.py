@@ -18,7 +18,8 @@ def reduced_lm(cfg: LMConfig) -> LMConfig:
     return dataclasses.replace(
         cfg, n_layers=n_layers, d_model=64,
         n_q=4, n_kv=max(1, 4 * cfg.n_kv // cfg.n_q), d_head=16,
-        d_ff=128, n_experts=min(cfg.n_experts, 8), vocab=211,
+        d_ff=128, d_ff_expert=32 if cfg.moe else 0,
+        n_experts=min(cfg.n_experts, 8), vocab=211,
         param_dtype=torch.float32, compute_dtype=torch.float32,
         attn_chunk=64,
     )

@@ -61,7 +61,9 @@ def lm_params(tree, device=None) -> dict:
     """The port's LM parameters from the JAX package's parameter tree
     (``repro.models.transformer.init_params`` layout): ``embed``,
     ``final_norm``, ``layers`` (stacked ``(L, ...)`` arrays) and ``lm_head``
-    unless the embedding is tied.  Dtypes are kept."""
+    unless the embedding is tied.  Every array is carried by its key with
+    its dtype and bits: a MoE layer's float32 ``router`` stays float32 and
+    its bf16 experts (``we_*``, ``ws_*``) keep their bf16 bits."""
     dev = resolve_device(device)
     out = {"embed": _tensor(tree["embed"], dev),
            "final_norm": _tensor(tree["final_norm"], dev),

@@ -6,7 +6,9 @@
 A batch of requests is prefilled once, then decoded step by step (greedy).
 The CLI runs the reduced config (``configs/reduced.py``) with parameters
 drawn from a generator seeded with 0, on the CUDA card unless ``--device``
-says otherwise.  :func:`generate` is the loop itself, at any width.
+says otherwise; a MoE arch (``--arch moonshot-v1-16b-a3b`` or
+``phi3.5-moe-42b-a6.6b``) serves the same way.  :func:`generate` is the
+loop itself, at any width.
 """
 
 from __future__ import annotations

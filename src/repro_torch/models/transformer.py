@@ -1,5 +1,5 @@
 """Decoder-only LM family for inference: GQA (optional QKV bias), RoPE,
-local:global attention mixes, dense SwiGLU FFN, KV-cache serving.
+local:global attention mixes, dense SwiGLU or MoE FFN, KV-cache serving.
 
 Plain functions over a parameter tree that has the reference's layout:
 ``{"embed": (V, D), "final_norm": (D,), "layers": {name: (L, ...)},
@@ -8,9 +8,15 @@ JAX package's parameters carry across unchanged (``interop.lm_params``).
 The layer loop is a Python loop with ``kind = pattern[i % len(pattern)]``,
 which is the reference's scan over pattern periods plus the unrolled
 remainder.  ``LMConfig`` has the reference's fields less its training and
-TPU knobs (remat, microbatches, sequence sharding, the Pallas tile size)
-and less its MoE routing fields; MoE layers and the training loss wait for
-a later slice of the port.
+TPU knobs (remat, microbatches, sequence sharding, the Pallas tile size);
+the training loss waits for a later slice of the port.
+
+MoE layers (``_moe_ffn``) route each token to its top-k experts with the
+reference's capacity dispatch: ``C = max(1, int(capacity_factor * T * K /
+E))`` slots an expert over the T tokens of the whole batch (so requests
+share capacity, and a decode step of a few requests keeps about one token
+an expert), slots ranked in token-major, then k, order, the rest dropped.
+``moe_route`` is that routing on its own.
 
 Serving: ``prefill`` runs the prompt through every layer (the flash
 kernel when ``cfg.use_flash_kernel`` is set, else the plain attention
@@ -33,10 +39,6 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 
-_MOE_TODO = ("MoE layers wait for a later slice of the port (ROADMAP A14): "
-             "only dense configs run")
-
-
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     name: str = "lm"
@@ -55,9 +57,12 @@ class LMConfig:
     window: int = 1024
     rope_theta: float = 10_000.0
     rope_theta_local: float = 10_000.0
-    # MoE (n_experts == 0 -> dense); the port runs dense configs only, and
-    # the routing fields come with the MoE slice
+    # MoE (n_experts == 0 -> dense)
     n_experts: int = 0
+    top_k: int = 2
+    d_ff_expert: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
     # numerics / execution
     param_dtype: Any = torch.bfloat16
     compute_dtype: Any = torch.bfloat16
@@ -75,10 +80,26 @@ class LMConfig:
         if self.qkv_bias:
             attn += (self.n_q + 2 * self.n_kv) * dh
         if self.moe:
-            raise NotImplementedError(_MOE_TODO)
-        per_layer = attn + 3 * d * self.d_ff + 2 * d
+            ff = self.n_experts * 3 * d * self.d_ff_expert + d * self.n_experts
+            ff += self.n_shared_experts * 3 * d * self.d_ff_expert
+        else:
+            ff = 3 * d * self.d_ff
+        per_layer = attn + ff + 2 * d
         emb = self.vocab * d * (1 if self.tie_embed else 2)
         return self.n_layers * per_layer + emb + d
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through: the routed top-k and the
+        shared experts of each layer, the router, and the rest."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        dense_like = dataclasses.replace(self, n_experts=0,
+                                         d_ff=0).param_count()
+        ff_active = (self.top_k + self.n_shared_experts) * 3 * d \
+            * self.d_ff_expert
+        ff_active += d * self.n_experts  # router
+        return dense_like + self.n_layers * ff_active
 
 
 # ---------------------------------------------------------------------------
@@ -86,18 +107,19 @@ class LMConfig:
 # ---------------------------------------------------------------------------
 
 def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
-    """Random parameters on the generator's device (dense configs only).
-    Stacked (L, ...) arrays are drawn one layer at a time in float32, so
-    the float32 peak is one layer's widest matrix."""
-    if cfg.moe:
-        raise NotImplementedError(_MOE_TODO)
+    """Random parameters on the generator's device, in the reference's
+    layout: a MoE layer has a float32 ``router`` (d, E), experts
+    ``we_gate``/``we_up`` (E, d, fe) and ``we_down`` (E, fe, d), and shared
+    experts ``ws_*`` of width ``fe * n_shared_experts``.  Stacked (L, ...)
+    arrays are drawn one layer at a time in float32, so the float32 peak is
+    one layer's widest tensor."""
     L, d, dh = cfg.n_layers, cfg.d_model, cfg.d_head
     pd, dev = cfg.param_dtype, gen.device
 
-    def stacked(shape):
-        out = torch.empty((L,) + shape, dtype=pd, device=dev)
+    def stacked(shape, dtype=pd):
+        out = torch.empty((L,) + shape, dtype=dtype, device=dev)
         for i in range(L):
-            out[i] = cm.dense_init(gen, shape, dtype=pd)
+            out[i] = cm.dense_init(gen, shape, dtype=dtype)
         return out
 
     layers = {
@@ -112,9 +134,21 @@ def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
         layers["bq"] = torch.zeros((L, cfg.n_q * dh), dtype=pd, device=dev)
         layers["bk"] = torch.zeros((L, cfg.n_kv * dh), dtype=pd, device=dev)
         layers["bv"] = torch.zeros((L, cfg.n_kv * dh), dtype=pd, device=dev)
-    layers["w_gate"] = stacked((d, cfg.d_ff))
-    layers["w_up"] = stacked((d, cfg.d_ff))
-    layers["w_down"] = stacked((cfg.d_ff, d))
+    if cfg.moe:
+        E, fe = cfg.n_experts, cfg.d_ff_expert
+        layers["router"] = stacked((d, E), dtype=torch.float32)
+        layers["we_gate"] = stacked((E, d, fe))
+        layers["we_up"] = stacked((E, d, fe))
+        layers["we_down"] = stacked((E, fe, d))
+        if cfg.n_shared_experts:
+            fs = fe * cfg.n_shared_experts
+            layers["ws_gate"] = stacked((d, fs))
+            layers["ws_up"] = stacked((d, fs))
+            layers["ws_down"] = stacked((fs, d))
+    else:
+        layers["w_gate"] = stacked((d, cfg.d_ff))
+        layers["w_up"] = stacked((d, cfg.d_ff))
+        layers["w_down"] = stacked((cfg.d_ff, d))
     params = {
         "embed": cm.embed_init(gen, (cfg.vocab, d), dtype=pd),
         "final_norm": torch.zeros((d,), dtype=pd, device=dev),
@@ -232,12 +266,84 @@ def _dense_ffn(x, lp, cfg):
     return cm.swiglu(h @ lp["w_gate"], h @ lp["w_up"]) @ lp["w_down"]
 
 
+@dataclasses.dataclass
+class Routing:
+    """One MoE layer's routing of T tokens to K of E experts."""
+    probs: torch.Tensor      # (T, E) float32 router softmax
+    topw: torch.Tensor       # (T, K) float32 weights, summing to 1 a token
+    tope: torch.Tensor       # (T, K) int64 experts, descending probability
+    slot: torch.Tensor       # (T*K,) int64 row of the (E*C + 1)-row buffer
+    keep: torch.Tensor       # (T*K,) bool: the slot fits its expert
+    load: torch.Tensor       # (E,) int64 slots routed to each expert
+    capacity: int            # C, slots an expert
+
+
+def moe_route(xt: torch.Tensor, router: torch.Tensor,
+              cfg: LMConfig) -> Routing:
+    """The reference's routing (``repro.models.transformer._moe_ffn``):
+    float32 router softmax, top-k, weights renormalised, and each slot
+    (token t's k-th expert, flat index t*K + k) ranked within its expert
+    by the slots before it in that flat order (exclusive cumsum of the
+    one-hot).  A slot ranked below C goes to row ``e*C + rank``; every
+    other slot to the discarded row ``E*C``.  The one-hot is laid out
+    (E, T*K), so the cumsum runs along its last dim: along dim 0 of the
+    (T*K, E) layout a CUDA scan walks each of the E columns in one thread."""
+    T = xt.shape[0]
+    E, K = cfg.n_experts, cfg.top_k
+    C = max(1, int(cfg.capacity_factor * T * K / E))
+    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+    topw, tope = torch.topk(probs, K, dim=-1)
+    topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+    fe = tope.reshape(-1)
+    oh = (fe == torch.arange(E, device=fe.device)[:, None]).long()
+    seen = oh.cumsum(1)
+    rank = (seen - oh).gather(0, fe[None])[0]
+    keep = rank < C
+    slot = torch.where(keep, fe * C + rank, E * C)
+    return Routing(probs, topw, tope, slot, keep, seen[:, -1], C)
+
+
 def _moe_ffn(x, lp, cfg):
-    raise NotImplementedError(_MOE_TODO)
+    """Top-k capacity dispatch into an (E, C, d) buffer, the experts as
+    batched matmuls over E, shared experts on the normed rows.  Returns
+    (out (B, S, d), aux): aux is the Switch load-balance loss ``E *
+    sum(mean(probs) * bincount(experts) / (T*K))`` over every routed slot,
+    kept or dropped.
+
+    Each kept slot's row is copied into its buffer row (``index_copy_``;
+    only the discarded row ``E*C`` takes several), so the dispatch is exact.
+    The combine adds a token's K weighted expert rows one after another in
+    the compute dtype, rounding after each addition, as the reference's
+    scatter-add into a zero row of that dtype does when it applies the K
+    updates in order (``ft`` repeats each token K times, so they are
+    adjacent); no atomics.  Nothing here reads the device from the host."""
+    b, s, d = x.shape
+    h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    T = b * s
+    xt = h.reshape(T, d)
+    E, K = cfg.n_experts, cfg.top_k
+    r = moe_route(xt, lp["router"], cfg)
+    C = r.capacity
+    ft = torch.arange(T * K, device=x.device) // K
+    buf = xt.new_zeros((E * C + 1, d)).index_copy_(0, r.slot, xt[ft])
+    xe = buf[:E * C].view(E, C, d)
+    g = torch.bmm(xe, lp["we_gate"])
+    u = torch.bmm(xe, lp["we_up"])
+    y = torch.bmm(cm.swiglu(g, u), lp["we_down"]).reshape(E * C, d)
+    y = torch.cat([y, y.new_zeros((1, d))])
+    contrib = (y[r.slot] * r.topw.reshape(-1, 1).to(y.dtype)).view(T, K, d)
+    out = contrib[:, 0]
+    for k in range(1, K):
+        out = out + contrib[:, k]
+    if cfg.n_shared_experts:
+        out = out + cm.swiglu(xt @ lp["ws_gate"],
+                              xt @ lp["ws_up"]) @ lp["ws_down"]
+    aux = E * torch.sum(r.probs.mean(0) * (r.load.float() / (T * K)))
+    return out.reshape(b, s, d), aux
 
 
 def _ffn(x, lp, cfg):
-    return _moe_ffn(x, lp, cfg) if cfg.moe else _dense_ffn(x, lp, cfg)
+    return _moe_ffn(x, lp, cfg)[0] if cfg.moe else _dense_ffn(x, lp, cfg)
 
 
 def _logits(params, x, cfg):

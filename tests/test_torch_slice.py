@@ -315,32 +315,6 @@ def test_default_device_needs_cuda(monkeypatch):
             call()
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
-                                  "moonshot-v1-16b-a3b"])
-def test_moe_configs_raise(arch):
-    """The MoE LM configs wait for a later slice: the registry, a MoE
-    config's parameters and its FFN raise NotImplementedError."""
-    import dataclasses
-
-    from repro_torch.configs import registry
-    from repro_torch.configs.reduced import reduced_lm
-    from repro_torch.launch import serve
-    from repro_torch.models import transformer as T
-
-    with pytest.raises(NotImplementedError, match="MoE"):
-        registry.get_config(arch)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        serve.main(["--arch", arch, "--device", "cpu"])
-    moe = dataclasses.replace(reduced_lm(registry.get_config("granite-8b")),
-                              n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.init_params(torch.Generator().manual_seed(0), moe)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        moe.param_count()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T._moe_ffn(torch.zeros((1, 2, 64)), {}, moe)
-
-
 @pytest.mark.parametrize("kw", [
     dict(mesh=object()), dict(mesh_axes=("data",)),
     dict(checkpoint_dir="ckpt"), dict(resume=True), dict(store=object()),

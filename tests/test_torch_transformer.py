@@ -59,11 +59,12 @@ def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["phi3.5-moe-42b-a6.6b",
+                                          "moonshot-v1-16b-a3b"])
 def test_config_copies_jax_config(arch):
-    """Every field of the port's config (the reference's less its training,
-    TPU and MoE routing knobs) equals the JAX config's, at full and at
-    reduced size."""
+    """Every field of the port's config (the reference's less its training
+    and TPU knobs) equals the JAX config's, at full and at reduced size, and
+    so do the parameter counts."""
     dtypes = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
     jfull, tfull = jregistry.get_config(arch), tregistry.get_config(arch)
     for jcfg, tcfg in ((jfull, tfull),
@@ -73,6 +74,7 @@ def test_config_copies_jax_config(arch):
             want = dtypes.get(want, want) if f.name.endswith("dtype") else want
             assert getattr(tcfg, f.name) == want, (arch, f.name)
         assert tcfg.param_count() == jcfg.param_count()
+        assert tcfg.active_param_count() == jcfg.active_param_count()
 
 
 @pytest.mark.parametrize("arch", DENSE)
