@@ -164,12 +164,41 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
        layer-0 FFN weights on MOE_ROWS rows of that layer's actual input
        (bf16) on the card and on the CPU; the experts, slots and kept flags
        equal (a token whose router margin is below ROUTE_EPS excused), the
-       outputs within MOE_FFN_TOL, aux within MOE_AUX_TOL.
+       outputs within MOE_FFN_TOL, aux within MOE_AUX_TOL;
+10. after 7d, once every LM parameter of phases 7-7d is freed: training,
+    each part through ``run_phase``:
+    10a. every LM arch at ``reduced_lm`` in float32, from the same host
+         parameters and TokenStream batch: ``loss_fn``'s loss, aux and every
+         gradient, and one ``make_train_step(microbatches=2)`` step, on the
+         card against the same calls on the host (``TRAIN_TOL``, the
+         parameters at ``TRAIN_STEP_TOL``); then ``train_loop.run`` on
+         qwen2.5-14b's reduced config for 40 steps at lr 1e-3, whose loss
+         must fall (the mean of the last 5 below the first), and the same
+         run with a ``fault_hook`` raising ``RuntimeError`` at step 17, which
+         restores step 10's checkpoint and must replay to the same losses;
+    10b. one gemma3-4b global layer (layer 5) at full width, ``x + attn +
+         ffn`` on 512 tokens in float32: the gradients of every layer weight
+         and of x on the card against the host, within LAYER_GRAD_RTOL;
+    10c. gemma3-4b trained at full width (all 34 layers, d_model 2,560,
+         vocab 262,144, bf16, remat "full", random weights from a generator
+         seeded with 0): three ``make_train_step`` steps on one TokenStream
+         sequence of 4,096 tokens, the same batch each step, AdamW at lr
+         1e-3 after one warmup step.  The loss and grad_norm must be finite,
+         the loss must fall from step 0 to step 2, no kernel may launch (B3
+         has no backward, as the reference's Pallas kernel has no reverse
+         mode), ``loss_fn`` with ``use_flash_kernel=True`` under a gradient
+         must raise, and AdamW's own peak may be at most two float32 copies
+         of the largest leaf.  It prints the init time, and per step the
+         wall, the forward-and-backward and AdamW shares, tokens/s, the peak
+         device memory and ``train_mfu``: 6 x ``param_count()`` x tokens plus
+         3 x the attention's forward flops (the JAX package's
+         ``lm_family._attn_fwd_flops``; remat's recompute not counted) over
+         the wall and 989 TFLOP/s, beside that flop bound.
 
 Four main paths: the truss path (phases 3-5d), the maintenance path (8a),
 the mesh path (9a) and the LM path (phase 7, and 7b and 7c, each read on
-its own); 5e-5h, 8b-8e, 9b and 9c read their own launches, each through
-``run_phase``.
+its own); 5e-5h, 8b-8e, 9b, 9c and 10 read their own launches, each through
+``run_phase`` (phase 10 must launch none).
 Every launch counter is set to 0 just before each and read just after it,
 and each kernel of the path must have launched (B1 and B2 on the truss
 path, B1 on the maintenance and the mesh paths, B3 on the LM path; no
@@ -331,6 +360,27 @@ MOE_ROWS = 256
 ROUTE_EPS = 1e-5
 MOE_FFN_TOL = dict(rtol=2 ** -6, atol=2 ** -6)
 MOE_AUX_TOL = dict(rtol=1e-5, atol=0.0)
+
+# phase 10: training.  10a holds each reduced LM arch's loss, aux and
+# gradients on the card to the same call on the host at the CPU tests'
+# tolerance (tests/test_torch_train.py), and one make_train_step at
+# TRAIN_TOL, its parameters at TRAIN_STEP_TOL: a first AdamW step moves a
+# parameter by lr * g / (|g| + eps), which for a gradient near eps turns on
+# its last bits (a tenth of the learning rate).  The train loop runs
+# TRAIN_LOOP_STEPS steps of qwen2.5-14b's reduced config; the fault run
+# raises at TRAIN_FAULT_STEP and must replay to the same losses.
+TRAIN_TOL = dict(rtol=2e-5, atol=2e-6)
+TRAIN_LR = 1e-3
+TRAIN_STEP_TOL = dict(rtol=0.0, atol=TRAIN_LR / 10)
+TRAIN_LOOP_STEPS, TRAIN_FAULT_STEP, TRAIN_CKPT_EVERY = 40, 17, 10
+# 10b: one gemma3-4b global layer at full width in float32 (TF32 off), card
+# against host, on LAYER_TOKENS tokens: each gradient's largest difference
+# at most LAYER_GRAD_RTOL of its largest magnitude (float32 sums over 512
+# tokens and 10,240-wide rows in other orders)
+LAYER_TOKENS, LAYER_INDEX, LAYER_GRAD_RTOL = 512, 5, 1e-4
+# 10c: gemma3-4b trained at full width, one TokenStream sequence a step
+TRAIN_SEQ, TRAIN_STEPS = 4096, 3
+BF16_FLOPS_PER_S = 989e12
 
 # phi digests of the JAX package (repro.core.peel.truss_decompose, default
 # route), made on the CPU from the repository root with:
@@ -1975,6 +2025,351 @@ def moe_layer_check(torch, lm, cfg, rows, lp_host, dev) -> dict:
     return res
 
 
+def attn_fwd_flops(cfg, batch: int, seq: int) -> float:
+    """Causal attention matmul flops (Q K^T and P V) of one forward,
+    window-aware per layer: the JAX package's
+    ``configs/lm_family.py::_attn_fwd_flops``."""
+    full = 2 * 2 * batch * seq * seq * cfg.n_q * cfg.d_head / 2
+    local = 2 * 2 * batch * seq * min(cfg.window, seq) * cfg.n_q * cfg.d_head
+    return sum(local if cfg.pattern[i % len(cfg.pattern)] == "local"
+               else full for i in range(cfg.n_layers))
+
+
+def grads_of(torch, tree, lm, cfg, params, batch, dev):
+    """(total, loss, aux, gradient leaves) of ``lm.loss_fn``."""
+    leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    total, parts = lm.loss_fn(tree.unflatten_like(params, leaves), batch,
+                              cfg, device=dev)
+    grads = torch.autograd.grad(total, leaves)
+    return (total.detach(), parts["loss"].detach(), parts["aux"].detach(),
+            grads)
+
+
+def max_err(torch, got, want) -> float:
+    return max(float((g.cpu().float() - w.float()).abs().max())
+               for g, w in zip(got, want))
+
+
+def train_reduced_card_vs_host(torch, tree, lm, registry, make_reduced,
+                               make_train_step, adamw, dev) -> dict:
+    """10a, first part: every LM arch at ``reduced_lm`` (float32) from the
+    same host parameters and TokenStream batch: loss, aux and every
+    gradient, then one ``make_train_step(microbatches=2)`` step, on the card
+    and on the host."""
+    out = {}
+    cpu = torch.device("cpu")
+    for arch in registry.LM_ARCHS:
+        cfg, init_fn, _, batch_fn = make_reduced(arch, device=cpu)
+        host = init_fn()
+        card = tree.map_leaves(lambda x: x.to(dev, copy=True), host)
+        batch_h = batch_fn(0)
+        batch_d = {k: v.to(dev) for k, v in batch_h.items()}
+        rh = grads_of(torch, tree, lm, cfg, host, batch_h, cpu)
+        rd = grads_of(torch, tree, lm, cfg, card, batch_d, dev)
+        for name, a, b in (("loss", rd[1], rh[1]), ("aux", rd[2], rh[2])):
+            if not np.isclose(float(a), float(b), **TRAIN_TOL):
+                raise AssertionError(f"10a {arch}: {name} {float(a)} on the "
+                                     f"card, {float(b)} on the host")
+        for path, g, w in zip(tree.flatten_with_paths(host)[0], rd[3],
+                              rh[3]):
+            if not torch.allclose(g.cpu(), w, **TRAIN_TOL):
+                raise AssertionError(f"10a {arch}: the gradient of {path} "
+                                     f"differs between the card and the host")
+        ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+        (pd, sd, md), (ph, sh, mh) = (
+            make_train_step(lambda p, b, w=where: lm.loss_fn(
+                p, b, cfg, device=w)[0], ocfg, microbatches=2)(
+                    params, adamw.init_state(params), batch)
+            for where, params, batch in ((dev, card, batch_d),
+                                         (cpu, host, batch_h)))
+        for k in ("loss", "grad_norm", "lr"):
+            if not np.isclose(float(md[k]), float(mh[k]), **TRAIN_TOL):
+                raise AssertionError(f"10a {arch}: the train step's {k} "
+                                     f"differs between the card and the host")
+        for k in ("m", "v"):
+            if not all(torch.allclose(a.cpu(), b, **TRAIN_TOL) for a, b in
+                       zip(tree.leaves(sd[k]), tree.leaves(sh[k]))):
+                raise AssertionError(f"10a {arch}: the train step's {k} "
+                                     f"differs between the card and the host")
+        if not all(torch.allclose(a.cpu(), b, **TRAIN_STEP_TOL) for a, b in
+                   zip(tree.leaves(pd), tree.leaves(ph))):
+            raise AssertionError(f"10a {arch}: the train step's parameters "
+                                 f"differ between the card and the host")
+        out[arch] = dict(loss=float(rd[1]), aux=float(rd[2]),
+                         loss_err=abs(float(rd[1]) - float(rh[1])),
+                         grad_err=max_err(torch, rd[3], rh[3]),
+                         step_loss=float(md["loss"]),
+                         step_param_err=max_err(torch, tree.leaves(pd),
+                                                tree.leaves(ph)))
+    return out
+
+
+def train_loop_run(torch, tree, make_reduced, make_train_step, adamw,
+                   train_loop, dev, ckpt_dir, fault_step=None):
+    """``train_loop.run`` on qwen2.5-14b's reduced config on the card,
+    TRAIN_LOOP_STEPS steps at TRAIN_LR (the training CLI's schedule), a
+    checkpoint every TRAIN_CKPT_EVERY steps; with ``fault_step``, a
+    RuntimeError raised once before that step."""
+    cfg, init_fn, loss_fn, batch_fn = make_reduced("qwen2.5-14b", device=dev)
+    step = make_train_step(loss_fn, adamw.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=max(TRAIN_LOOP_STEPS // 20, 1),
+        total_steps=TRAIN_LOOP_STEPS))
+    fired = []
+
+    def fault_hook(i):
+        if i == fault_step and not fired:
+            fired.append(i)
+            raise RuntimeError(f"injected fault at step {i}")
+
+    def init_state():
+        params = init_fn()
+        return {"params": params, "opt": adamw.init_state(params)}
+
+    def train_step(state, batch):
+        params, opt, m = step(state["params"], state["opt"], batch)
+        return {"params": params, "opt": opt}, m
+
+    return train_loop.run(train_loop.LoopConfig(
+        steps=TRAIN_LOOP_STEPS, ckpt_dir=ckpt_dir,
+        ckpt_every=TRAIN_CKPT_EVERY, log_every=1), init_state, train_step,
+        batch_fn, fault_hook=fault_hook)
+
+
+def layer_card_vs_host(torch, lm, registry, dev) -> dict:
+    """10b: one gemma3-4b global layer (LAYER_INDEX) at full width,
+    ``x + attn + ffn`` on (1, LAYER_TOKENS) tokens in float32 on the card
+    and on the host: the gradients of every layer weight (and of x) of
+    ``sum(out * cotangent)`` within LAYER_GRAD_RTOL of each one's largest
+    magnitude.  Weights and inputs from a host generator seeded with 0."""
+    cfg = dataclasses.replace(registry.get_config("gemma3-4b"),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32, remat=False)
+    kind = lm._kind(cfg, LAYER_INDEX)
+    if kind != "global":
+        raise AssertionError(f"10b: layer {LAYER_INDEX} is {kind}")
+    gen = torch.Generator().manual_seed(0)
+    d, dh, f = cfg.d_model, cfg.d_head, cfg.d_ff
+    shapes = dict(wq=(d, cfg.n_q * dh), wk=(d, cfg.n_kv * dh),
+                  wv=(d, cfg.n_kv * dh), wo=(cfg.n_q * dh, d),
+                  w_gate=(d, f), w_up=(d, f), w_down=(f, d))
+    host = {k: lm.cm.dense_init(gen, s) for k, s in shapes.items()}
+    for k in ("ln1", "ln2"):
+        host[k] = 0.1 * torch.randn(d, generator=gen)
+    host["x"] = torch.randn((1, LAYER_TOKENS, d), generator=gen)
+    cot = torch.randn((1, LAYER_TOKENS, d), generator=gen)
+    pos = torch.arange(LAYER_TOKENS, dtype=torch.int32)[None]
+    res = []
+    for where in (dev, torch.device("cpu")):
+        leaves = {k: a.to(where).requires_grad_(True)
+                  for k, a in host.items()}
+        lp = {k: a for k, a in leaves.items() if k != "x"}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = lm._layer_fwd(leaves["x"], lp, kind, pos.to(where), cfg)
+        grads = torch.autograd.grad((out * cot.to(where)).sum(),
+                                    list(leaves.values()))
+        torch.cuda.synchronize()
+        res.append((dict(zip(leaves, grads)),
+                    (time.perf_counter() - t0) * 1e3, out))
+    (gd, card_ms, od), (gh, host_ms, oh) = res
+    rel = {k: float((gd[k].cpu() - gh[k]).abs().max() / gh[k].abs().max())
+           for k in gh}
+    out_rel = float((od.detach().cpu() - oh.detach()).abs().max()
+                    / oh.detach().abs().max())
+    bad = [k for k, r in rel.items() if not r <= LAYER_GRAD_RTOL]
+    r = dict(layer=LAYER_INDEX, kind=kind, tokens=LAYER_TOKENS,
+             grad_rel_err=rel, out_rel_err=out_rel, card_ms=card_ms,
+             host_ms=host_ms)
+    say(f"[10b] gemma3-4b layer {LAYER_INDEX} ({kind}) at full width, "
+        f"float32, {LAYER_TOKENS} tokens, card against host: {r}")
+    if bad or not out_rel <= LAYER_GRAD_RTOL:
+        raise AssertionError(f"10b: the gradients of {bad} (or the output) "
+                             f"differ between the card and the host beyond "
+                             f"LAYER_GRAD_RTOL")
+    return r
+
+
+def train_full_width(torch, tree, lm, registry, TokenStream, adamw, cells,
+                     run_phase, phase_launches, dev) -> dict:
+    """10c: gemma3-4b trained at full width (bf16, remat "full", random
+    weights from a generator seeded with 0): TRAIN_STEPS steps of
+    ``make_train_step(microbatches=1)`` on one TokenStream sequence of
+    TRAIN_SEQ tokens, the same batch each step, lr 1e-3 after one warmup
+    step.  ``adamw.update`` is wrapped to time it; its own peak is read on
+    one more update, with zero gradients, after the timed steps."""
+    cfg = registry.get_config("gemma3-4b")
+    n = cfg.param_count()
+    state_gib = 16 * n / 2 ** 30
+    logits_gib = TRAIN_SEQ * cfg.vocab * 2 / 2 ** 30
+    say(f"[10c] {cfg.name}: {n:,} parameters; weights, gradients (bf16) "
+        f"and float32 master, m, v: {state_gib:.1f} GiB; the loss head's "
+        f"bf16 logits {logits_gib:.1f} GiB and their float32 copy "
+        f"{2 * logits_gib:.1f} GiB, about as much again in the backward; "
+        f"held now {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt = adamw.init_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    largest = max(a.numel() for a in tree.leaves(params))
+    stream = TokenStream(cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, seed=0)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in stream.batch(0).items()}
+    step = cells.make_train_step(
+        lambda p, b: lm.loss_fn(p, b, cfg, device=dev)[0],
+        adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1), microbatches=1)
+    update, upd = adamw.update, []
+
+    def timed_update(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = update(*args, **kw)
+        torch.cuda.synchronize()
+        upd.append(time.perf_counter() - t)
+        return out
+
+    flops = 6 * n * TRAIN_SEQ + 3 * attn_fwd_flops(cfg, 1, TRAIN_SEQ)
+    bound_s = flops / BF16_FLOPS_PER_S
+    rows = []
+
+    def run_steps():
+        nonlocal params, opt
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            rows.append(dict(
+                step=i, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                lr=float(m["lr"]), wall_s=wall, fwd_bwd_s=wall - upd[-1],
+                adamw_s=upd[-1], adamw_share=upd[-1] / wall,
+                tokens_per_s=TRAIN_SEQ / wall,
+                train_mfu=flops / wall / BF16_FLOPS_PER_S,
+                peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20))
+            say(f"[10c] step {i}: {rows[-1]}")
+
+    adamw.update = timed_update
+    try:
+        run_phase("10c train gemma3-4b", run_steps)
+    finally:
+        adamw.update = update
+    losses = [r["loss"] for r in rows]
+    if not all(np.isfinite([r["loss"] for r in rows] +
+                           [r["grad_norm"] for r in rows])):
+        raise AssertionError(f"10c: a loss or grad_norm is not finite: {rows}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"10c: the loss did not fall: {losses}")
+    if any(phase_launches["10c train gemma3-4b"].values()):
+        raise AssertionError(f"10c: a kernel launched in training: "
+                             f"{phase_launches['10c train gemma3-4b']}")
+    # AdamW's own peak above what it finds held, on one more update with
+    # zero gradients: at most two float32 temporaries of the largest leaf,
+    # and the step's small tensors
+    zeros = tree.map_leaves(torch.zeros_like, params)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    update(adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1), params, opt,
+           zeros)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - held
+    del zeros
+    if extra > 2 * 4 * largest + 2 ** 26:
+        raise AssertionError(f"10c: AdamW took {extra / 2**20:.1f} MiB above "
+                             f"its start, more than two float32 copies of the "
+                             f"largest leaf ({largest:,} elements)")
+    flash = lambda p, b: lm.loss_fn(p, b, dataclasses.replace(
+        cfg, use_flash_kernel=True), device=dev)[0]
+    try:
+        cells.value_and_grad(flash, params, batch)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("10c: use_flash_kernel=True under a gradient "
+                             "did not raise")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    res = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab, params=n, tokens=TRAIN_SEQ, init_s=init_s,
+        model_flops=flops, bound_ms=bound_s * 1e3, state_gib=state_gib,
+        largest_leaf=largest, adamw_extra_mib=extra / 2 ** 20, steps=rows,
+        flash_refused=refused[:60],
+        b3_launches=phase_launches["10c train gemma3-4b"]["B3"])
+    say(f"[10c] {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}), {TRAIN_SEQ} tokens a step: init "
+        f"{init_s:.2f} s; losses {losses}; step wall "
+        f"{[round(r['wall_s'], 4) for r in rows]} s against a bound of "
+        f"{bound_s * 1e3:.1f} ms ({flops:.4g} flops over 989 TFLOP/s); "
+        f"tokens/s {rows[-1]['tokens_per_s']:.1f}, train_mfu "
+        f"{rows[-1]['train_mfu']:.4f}, AdamW share "
+        f"{rows[-1]['adamw_share']:.4f} (its own peak {extra / 2**20:.1f} MiB "
+        f"above what it found held), peak "
+        f"{max(r['peak_mib'] for r in rows):.1f} MiB; B3 launches "
+        f"{res['b3_launches']}; the flash kernel under a gradient raised")
+    return res
+
+
+def train_phases(torch, run_phase, phase_launches, dev) -> dict:
+    """Phase 10: training, after every LM parameter of phases 7-7d is
+    freed."""
+    from repro_torch import tree
+    from repro_torch.configs import cells, registry
+    from repro_torch.configs.reduced import make_reduced
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+
+    t_phase = time.perf_counter()
+    say(f"[10] training; held at its start "
+        f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB")
+    out = {"10a": run_phase("10a reduced archs card against host",
+                            lambda: train_reduced_card_vs_host(
+                                torch, tree, lm, registry, make_reduced,
+                                cells.make_train_step, adamw, dev))}
+    say(f"[10a] card against host: {json.dumps(out['10a'])}")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="train-smoke-") as tmp:
+        for name, fault in (("clean", None), ("fault", TRAIN_FAULT_STEP)):
+            runs[name] = run_phase(
+                f"10a train loop qwen2.5-14b ({name})",
+                lambda: train_loop_run(
+                    torch, tree, make_reduced, cells.make_train_step, adamw,
+                    train_loop, dev, os.path.join(tmp, name), fault))[1]
+    losses = {name: {r["step"]: r["loss"] for r in rows if "loss" in r}
+              for name, rows in runs.items()}
+    clean = [losses["clean"][i] for i in range(TRAIN_LOOP_STEPS)]
+    restarts = [r for r in runs["fault"] if "restart" in r]
+    out["loop"] = dict(first=clean[0], last5_mean=float(np.mean(clean[-5:])),
+                       losses=clean, restarts=restarts,
+                       resumed_equal=losses["fault"] == losses["clean"])
+    say(f"[10a] train loop qwen2.5-14b reduced, {TRAIN_LOOP_STEPS} steps: "
+        f"loss {clean[0]:.4f} -> mean of the last 5 "
+        f"{out['loop']['last5_mean']:.4f}; fault at step {TRAIN_FAULT_STEP}: "
+        f"{restarts}, replayed losses equal: {out['loop']['resumed_equal']}")
+    if not out["loop"]["last5_mean"] < clean[0]:
+        raise AssertionError("10a: the reduced training loss did not fall")
+    if len(restarts) != 1 or not out["loop"]["resumed_equal"]:
+        raise AssertionError("10a: the resumed run's losses differ from the "
+                             "uninterrupted run's")
+    out["10b"] = run_phase("10b gemma3-4b layer card against host",
+                           lambda: layer_card_vs_host(torch, lm, registry,
+                                                      dev))
+    out["10c"] = train_full_width(torch, tree, lm, registry, TokenStream,
+                                  adamw, cells, run_phase, phase_launches,
+                                  dev)
+    launched = {t: c for t, c in phase_launches.items()
+                if t.startswith("10") and any(c.values())}
+    if launched:
+        raise AssertionError(f"10: a kernel launched in training: {launched}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"[10] wall {out['wall_s']:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     import torch
     import torch.distributed as tdist
@@ -2638,6 +3033,10 @@ def main(argv) -> int:
     moe["7d"] = moe_layer_check(torch, lm, moe_cfgs["7b"], *layer0, dev)
     del layer0
     say(f"[7b-7d] {json.dumps(moe)}")
+
+    # -- phase 10: training, once phases 7-7d's parameters are freed ------
+    train = train_phases(torch, run_phase, phase_launches, dev)
+    say(f"[10] {json.dumps(train)}")
 
     # -- kernels on the largest inputs the main path gave them ---------------
     kernels = []

@@ -21,9 +21,10 @@ order and leaf paths join keys and indices with ``/`` (``"sup"``,
 ``"opt/mu/0"``), as the JAX package's tree walk gives them, so either
 package restores the other's snapshots.  Tensor leaves are copied to the
 host; a bf16 tensor is stored as its 16-bit pattern with dtype
-``"bfloat16"`` and restored as a bf16 tensor.  The JAX package's
-``shardings=`` (elastic re-shard onto a mesh) is not ported: only the LM
-side would use it (ROADMAP A14, training).
+``"bfloat16"`` and restored as a bf16 tensor.  ``restore(like=...)`` puts
+each tensor leaf on its ``like`` leaf's device; ``shardings=``, a matching
+tree of ``torch.device``s (or ``None`` leaves), places each leaf where it
+says, the one-card counterpart of the JAX package's tree of shardings.
 """
 
 from __future__ import annotations
@@ -35,12 +36,13 @@ import os
 import shutil
 import threading
 import warnings
-from typing import Any, Callable, Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import faults
+from repro_torch.tree import flatten_with_paths, map_leaves, unflatten_like
 
 _BF16 = "bfloat16"
 
@@ -75,31 +77,6 @@ def _from_savable(arr: np.ndarray, dtype_name: str):
     return arr
 
 
-def _flatten_with_paths(tree, prefix=()):
-    """(paths, leaves) of a tree of dicts (sorted keys), lists and tuples."""
-    if isinstance(tree, dict):
-        items = [(str(k), tree[k]) for k in sorted(tree)]
-    elif isinstance(tree, (list, tuple)):
-        items = [(str(i), v) for i, v in enumerate(tree)]
-    else:
-        return ["/".join(prefix)], [tree]
-    paths, leaves = [], []
-    for name, sub in items:
-        p, lv = _flatten_with_paths(sub, prefix + (name,))
-        paths += p
-        leaves += lv
-    return paths, leaves
-
-
-def _map_leaves(tree, fn: Callable):
-    """The tree with every leaf replaced by ``fn(leaf)``, in flatten order."""
-    if isinstance(tree, dict):
-        return {k: _map_leaves(tree[k], fn) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_leaves(v, fn) for v in tree)
-    return fn(tree)
-
-
 def atomic_file_write(path: str, payload: bytes) -> None:
     """Write ``payload`` to ``<path>.tmp`` then ``os.replace``: a crash at
     any point leaves the previous intact file or a stale ``.tmp``, never a
@@ -123,7 +100,7 @@ def save(ckpt_dir: str, step: int, tree: Any, metadata: Optional[dict] = None,
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    paths, leaves = _flatten_with_paths(tree)
+    paths, leaves = flatten_with_paths(tree)
     arrays = {f"a{i}": _to_host(x) for i, x in enumerate(leaves)}
     buf = io.BytesIO()
     np.savez(buf, **arrays)
@@ -219,24 +196,32 @@ def _load_step(ckpt_dir: str, step: int) -> tuple[list, dict]:
     return leaves, manifest
 
 
-def _cast_like(ref, arr):
-    """``arr`` in the type and dtype of the ``like`` leaf ``ref``."""
+def _cast_like(ref, arr, device=None):
+    """``arr`` in the type and dtype of the ``like`` leaf ``ref``: a tensor
+    leaf on ``device``, or else on ``ref``'s device; any other leaf given a
+    ``device`` becomes a tensor there."""
     if isinstance(ref, torch.Tensor):
         t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(arr)
-        return t.to(dtype=ref.dtype)
+        return t.to(device=ref.device if device is None else device,
+                    dtype=ref.dtype)
     if isinstance(arr, torch.Tensor):
         arr = arr.float().numpy()
-    return arr.astype(ref.dtype) if hasattr(ref, "dtype") else arr
+    arr = arr.astype(ref.dtype) if hasattr(ref, "dtype") else arr
+    return arr if device is None else torch.as_tensor(arr, device=device)
 
 
-def restore(ckpt_dir: str, like: Any = None,
-            step: Optional[int] = None) -> tuple[Any, dict]:
+def restore(ckpt_dir: str, like: Any = None, step: Optional[int] = None,
+            shardings: Any = None) -> tuple[Any, dict]:
     """Restore a snapshot; returns ``(tree, metadata)``.
 
     With ``like`` given, leaves are validated against its structure
     (:class:`CheckpointStructureError` on leaf-count or shape mismatch) and
-    cast to its leaf types.  With ``like=None`` the snapshot is returned as
-    a flat ``{path: array}`` dict — the form the round journal uses.
+    cast to its leaf types, each tensor leaf on its ``like`` leaf's device.
+    ``shardings``, a tree matching ``like`` whose leaves are
+    ``torch.device``s or ``None``, places each leaf on the device given
+    (``None``: where its ``like`` leaf lies).  With ``like=None`` the
+    snapshot is returned as a flat ``{path: array}`` dict — the form the
+    round journal uses.
 
     With ``step=None`` (latest), a snapshot that fails its integrity check
     falls back to the next-newest one (each skip warns); an explicit
@@ -265,23 +250,28 @@ def restore(ckpt_dir: str, like: Any = None,
             f"({len(candidates)} candidate(s) failed)") from last_err
     if like is None:
         return dict(zip(manifest["paths"], leaves)), manifest["metadata"]
-    _, flat_like = _flatten_with_paths(like)
+    _, flat_like = flatten_with_paths(like)
     if len(flat_like) != len(leaves):
         raise CheckpointStructureError(
             f"checkpoint step {manifest['step']} holds {len(leaves)} leaves "
             f"but the restore target has {len(flat_like)} — wrong tree "
             f"structure for this checkpoint")
+    flat_dev = (flatten_with_paths(shardings)[1] if shardings is not None
+                else [None] * len(leaves))
+    if len(flat_dev) != len(leaves):
+        raise CheckpointStructureError(
+            f"shardings has {len(flat_dev)} leaves but the restore target "
+            f"has {len(flat_like)}")
     out = []
-    for i, (ref, arr) in enumerate(zip(flat_like, leaves)):
-        arr = _cast_like(ref, arr)
+    for i, (ref, arr, sh) in enumerate(zip(flat_like, leaves, flat_dev)):
+        arr = _cast_like(ref, arr, sh)
         if tuple(arr.shape) != tuple(ref.shape):
             raise CheckpointStructureError(
                 f"checkpoint step {manifest['step']} leaf "
                 f"{manifest['paths'][i]!r} has shape {tuple(arr.shape)} but "
                 f"the restore target expects {tuple(ref.shape)}")
         out.append(arr)
-    it = iter(out)
-    return _map_leaves(like, lambda _: next(it)), manifest["metadata"]
+    return unflatten_like(like, out), manifest["metadata"]
 
 
 class AsyncWriter:
@@ -297,7 +287,7 @@ class AsyncWriter:
 
     def save(self, step: int, tree: Any, metadata: Optional[dict] = None):
         self.wait()
-        host_tree = _map_leaves(tree, _host_copy)
+        host_tree = map_leaves(_host_copy, tree)
 
         def work():
             try:

@@ -11,4 +11,5 @@ CONFIG = LMConfig(
     pattern=("local",) * 5 + ("global",), window=1024,
     rope_theta=1_000_000.0, rope_theta_local=10_000.0,
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+    remat=True, microbatches=8,
 )

@@ -9,4 +9,5 @@ CONFIG = LMConfig(
     d_head=128, d_ff=14336, vocab=49152, qkv_bias=False, tie_embed=True,
     pattern=("full",), rope_theta=10_000_000.0,
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+    remat=True, microbatches=8,
 )

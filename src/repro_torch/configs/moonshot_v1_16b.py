@@ -12,4 +12,5 @@ CONFIG = LMConfig(
     pattern=("full",), rope_theta=50_000.0,
     n_experts=64, top_k=6, d_ff_expert=1408, n_shared_experts=2,
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+    remat=True, microbatches=8,
 )

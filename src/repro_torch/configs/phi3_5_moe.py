@@ -10,4 +10,5 @@ CONFIG = LMConfig(
     pattern=("full",), rope_theta=10_000.0,
     n_experts=16, top_k=2, d_ff_expert=6400, n_shared_experts=0,
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+    remat=True, microbatches=8,
 )

@@ -9,4 +9,5 @@ CONFIG = LMConfig(
     d_head=128, d_ff=13824, vocab=152064, qkv_bias=True, tie_embed=False,
     pattern=("full",), rope_theta=1_000_000.0,
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+    remat=True, microbatches=8,
 )

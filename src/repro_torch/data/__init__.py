@@ -1,1 +1,2 @@
-"""Synthetic graph generators."""
+"""Synthetic data: graph generators (``graphgen``) and the LM token stream
+(``tokens``)."""

@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.graph import Graph
 from repro_torch.core.partition import PartBucket
 from repro_torch.device import resolve_device
+from repro_torch.tree import map_leaves
 
 _GRAPH_ARRAYS = ("edges", "deg", "rank", "src", "dst", "indptr", "nbrs",
                  "nbr_eid")
@@ -71,3 +72,14 @@ def lm_params(tree, device=None) -> dict:
     if "lm_head" in tree:
         out["lm_head"] = _tensor(tree["lm_head"], dev)
     return out
+
+
+def adamw_state(tree, device=None) -> dict:
+    """The port's AdamW state from the JAX package's
+    (``repro.optim.adamw.init_state`` layout: ``{"step", "master", "m",
+    "v"}``, each of the last three a tree like the parameters): the same
+    tree of tensors on ``device``, every array bit for bit (``step`` an
+    int32 0-dim tensor)."""
+    dev = resolve_device(device)
+    return map_leaves(lambda a: _tensor(a, dev),
+                      {k: tree[k] for k in ("step", "master", "m", "v")})

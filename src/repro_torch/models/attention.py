@@ -32,9 +32,11 @@ def _gqa_split(q, k, v):
     return qg, k.transpose(1, 2), v.transpose(1, 2), g
 
 
-def chunked_attention(q, k, v, *, causal=True, q_chunk=512, k_chunk=1024):
-    """Online-softmax attention over positions 0..S-1; layouts (B, S, H, D)
-    in and out."""
+def chunked_attention(q, k, v, *, causal=True, q_chunk=512, k_chunk=1024,
+                      positions_q=None, positions_kv=None):
+    """Online-softmax attention; layouts (B, S, H, D) in and out.  The
+    causal mask compares ``positions_kv`` (Skv,) with ``positions_q``
+    (Sq,), each ``arange`` when not given."""
     b, sq, hq, d = q.shape
     skv = k.shape[1]
     q_chunk = min(q_chunk, sq)
@@ -46,8 +48,10 @@ def chunked_attention(q, k, v, *, causal=True, q_chunk=512, k_chunk=1024):
     scale = 1.0 / math.sqrt(d)
     qg, kg, vg, g = _gqa_split(q, k, v)
     hk = kg.shape[1]
-    positions_q = torch.arange(sq, device=q.device)
-    positions_kv = torch.arange(skv, device=q.device)
+    positions_q = (torch.arange(sq, device=q.device) if positions_q is None
+                   else torch.as_tensor(positions_q, device=q.device))
+    positions_kv = (torch.arange(skv, device=q.device) if positions_kv is None
+                    else torch.as_tensor(positions_kv, device=q.device))
     blocks = []
     for i in range(0, sq, q_chunk):
         qb = qg[:, :, :, i:i + q_chunk].float()

@@ -1,5 +1,6 @@
 """Shared model building blocks on tensors: initialisation from an explicit
-``torch.Generator``, RMS norm, SwiGLU and rotary embeddings.
+``torch.Generator``, RMS norm, SwiGLU, rotary embeddings, the token-mean
+cross-entropy and the all-finite check of a training step.
 
 The reference's mesh helpers (``shard``, ``dp_spec``) are the identity
 without a mesh and are left out; the LM's mesh paths are ROADMAP A14.
@@ -8,10 +9,13 @@ without a mesh and are left out; the LM's mesh paths are ROADMAP A14.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.tree import leaves
 
 
 def dense_init(gen: torch.Generator, shape,
@@ -63,3 +67,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross-entropy in float32; logits (..., V), labels (...)
+    int.  With ``mask``, the masked mean over ``max(mask.sum(), 1)``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def finite_check(tree) -> torch.Tensor:
+    """A bool tensor: every floating tensor of a tree of dicts, lists and
+    tuples (on one device) is finite; True when there is none."""
+    oks = [torch.isfinite(x).all() for x in leaves(tree)
+           if isinstance(x, torch.Tensor) and x.is_floating_point()]
+    return torch.stack(oks).all() if oks else torch.tensor(True)

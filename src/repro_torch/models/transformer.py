@@ -1,5 +1,6 @@
-"""Decoder-only LM family for inference: GQA (optional QKV bias), RoPE,
-local:global attention mixes, dense SwiGLU or MoE FFN, KV-cache serving.
+"""Decoder-only LM family: GQA (optional QKV bias), RoPE, local:global
+attention mixes, dense SwiGLU or MoE FFN; the training loss and KV-cache
+serving.
 
 Plain functions over a parameter tree that has the reference's layout:
 ``{"embed": (V, D), "final_norm": (D,), "layers": {name: (L, ...)},
@@ -7,9 +8,22 @@ Plain functions over a parameter tree that has the reference's layout:
 JAX package's parameters carry across unchanged (``interop.lm_params``).
 The layer loop is a Python loop with ``kind = pattern[i % len(pattern)]``,
 which is the reference's scan over pattern periods plus the unrolled
-remainder.  ``LMConfig`` has the reference's fields less its training and
-TPU knobs (remat, microbatches, sequence sharding, the Pallas tile size);
-the training loss waits for a later slice of the port.
+remainder.  ``LMConfig`` has the reference's fields less its Pallas tile
+size.
+
+Training: ``forward`` returns ``(logits, aux)`` with gradients, aux the
+MoE load-balance loss summed over the layers in layer order, and
+``loss_fn`` is the cross-entropy plus ``0.01 * aux``.  The stacked layer
+leaves are taken apart once with ``unbind(0)`` (indexing ``a[i]`` under
+autograd would add a zero gradient of the whole ``(L, ...)`` leaf once a
+layer).  With ``cfg.remat``, each layer runs under
+``torch.utils.checkpoint`` (``remat_policy="full"`` keeps its input only;
+``"dots"`` also keeps the outputs of the matmuls with no batch dimension,
+``aten.mm``/``aten.addmm``, the counterpart of JAX's
+``dots_with_no_batch_dims_saveable``).  The flash-attention kernel has no
+backward, as the reference's Pallas kernel has no reverse mode, so
+``use_flash_kernel`` under a gradient raises; training runs the plain
+attention paths, as the reference's does.
 
 MoE layers (``_moe_ffn``) route each token to its top-k experts with the
 reference's capacity dispatch: ``C = max(1, int(capacity_factor * T * K /
@@ -30,9 +44,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -67,6 +84,13 @@ class LMConfig:
     param_dtype: Any = torch.bfloat16
     compute_dtype: Any = torch.bfloat16
     norm_eps: float = 1e-6
+    remat: bool = True
+    remat_policy: str = "full"          # "full" | "dots" | "none"
+    microbatches: int = 1
+    # sequence-parallel residuals: the reference shards the residual's
+    # sequence dim over its mesh; without a mesh its shard() is the
+    # identity, so on one card this changes nothing
+    seq_shard_activations: bool = False
     use_flash_kernel: bool = False       # the flash-attention kernel path
     attn_chunk: int = 1024               # > this seq len: chunked/banded attn
 
@@ -211,6 +235,13 @@ def _decode_attention(q, ck, cv, pos, window):
 
 def _attention(q, k, v, positions_q, positions_kv, window, cfg):
     if cfg.use_flash_kernel and q.shape[1] == k.shape[1]:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise ValueError(
+                "use_flash_kernel=True under a gradient: the flash-attention "
+                "kernel has no backward, as the JAX package's Pallas kernel "
+                "has no reverse mode; train with use_flash_kernel=False "
+                "(the plain attention paths)")
         o = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                       v.transpose(1, 2), causal=True,
                                       window=window)
@@ -343,7 +374,8 @@ def _moe_ffn(x, lp, cfg):
 
 
 def _ffn(x, lp, cfg):
-    return _moe_ffn(x, lp, cfg)[0] if cfg.moe else _dense_ffn(x, lp, cfg)
+    """(out, aux): the MoE load-balance loss, None for a dense FFN."""
+    return _moe_ffn(x, lp, cfg) if cfg.moe else (_dense_ffn(x, lp, cfg), None)
 
 
 def _logits(params, x, cfg):
@@ -361,23 +393,70 @@ def _tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=resolve_device(device))
 
 
-@torch.no_grad()
+def _unbound_layers(params: dict) -> list:
+    """Every layer's parameter dict, each stacked leaf taken apart once by
+    ``unbind(0)``, whose backward stacks the L gradients once."""
+    names = list(params["layers"])
+    cols = zip(*(params["layers"][k].unbind(0) for k in names))
+    return [dict(zip(names, c)) for c in cols]
+
+
+def _layer_fwd(x, lp, kind, positions, cfg):
+    a, _ = _attn_block(x, lp, kind, positions, cfg)
+    x = x + a
+    f, aux = _ffn(x, lp, cfg)
+    return x + f, aux
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _apply_layer(x, lp, kind, positions, cfg):
+    if cfg.remat and cfg.remat_policy != "none" and torch.is_grad_enabled():
+        kw = {}
+        if cfg.remat_policy == "dots":
+            kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                       _dots_policy)
+        return checkpoint(_layer_fwd, x, lp, kind, positions, cfg,
+                          use_reentrant=False, **kw)
+    return _layer_fwd(x, lp, kind, positions, cfg)
+
+
 def forward(params, tokens, cfg: LMConfig, positions=None, *, device=None):
-    """tokens (B, S) -> logits (B, S, V) (the reference also returns its
-    MoE load-balance loss, 0 for dense FFNs).  Runs on ``device`` (None:
-    the CUDA card), where the parameters lie."""
+    """tokens (B, S) -> (logits (B, S, V), aux), with gradients when they
+    are enabled; aux is the MoE load-balance loss summed over the layers
+    (0 for dense FFNs).  Runs on ``device`` (None: the CUDA card), where
+    the parameters lie."""
     tokens = _tokens(tokens, device)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
     x = params["embed"].to(cfg.compute_dtype)[tokens]
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        a, _ = _attn_block(x, lp, _kind(cfg, i), positions, cfg)
-        x = x + a
-        x = x + _ffn(x, lp, cfg)
-    return _logits(params, x, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, lp in enumerate(_unbound_layers(params)):
+        x, aux_i = _apply_layer(x, lp, _kind(cfg, i), positions, cfg)
+        if aux_i is not None:
+            aux = aux + aux_i
+    return _logits(params, x, cfg), aux
+
+
+def loss_fn(params, batch: dict, cfg: LMConfig, *, device=None):
+    """``(loss + 0.01 * aux, {"loss": loss, "aux": aux})``: the token-mean
+    cross-entropy of ``batch["tokens"]`` against ``batch["labels"]`` (with
+    ``batch["mask"]`` when given) plus the MoE load-balance loss."""
+    logits, aux = forward(params, batch["tokens"], cfg, device=device)
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=logits.device)
+    loss = cm.cross_entropy(logits, labels, mask)
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
@@ -411,7 +490,7 @@ def prefill(params, tokens, cfg: LMConfig, max_seq: Optional[int] = None, *,
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
         x = x + a
-        x = x + _ffn(x, lp, cfg)
+        x = x + _ffn(x, lp, cfg)[0]
     cache["pos"].fill_(s)
     return cache, _logits(params, x[:, -1:], cfg)[:, 0]
 
@@ -432,6 +511,6 @@ def decode_step(params, cache, tokens, cfg: LMConfig, *, device=None):
                            cache=(cache["k"][i], cache["v"][i]),
                            cache_pos=cache_pos)
         x = x + a
-        x = x + _ffn(x, lp, cfg)
+        x = x + _ffn(x, lp, cfg)[0]
     logits = _logits(params, x, cfg)[:, 0]
     return {"k": cache["k"], "v": cache["v"], "pos": pos + 1}, logits

@@ -172,10 +172,12 @@ def test_forward_matches_jax(arch):
     jcfg, tcfg = _configs(arch)
     jp, tp = _params(jcfg)
     toks = _tokens(tcfg, 2, PROMPT)
-    want, _ = jax.jit(partial(JT.forward, cfg=jcfg))(jp, jnp.asarray(toks))
-    got = TT.forward(tp, toks, tcfg, device="cpu")
+    want, want_aux = jax.jit(partial(JT.forward, cfg=jcfg))(
+        jp, jnp.asarray(toks))
+    got, aux = TT.forward(tp, toks, tcfg, device="cpu")
     assert got.shape == (2, PROMPT, tcfg.vocab)
-    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    np.testing.assert_allclose(_np(got.detach()), _np(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
 
 
 @pytest.mark.parametrize("flash", [True, False], ids=["flash", "plain"])

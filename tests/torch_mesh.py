@@ -287,8 +287,25 @@ def suite_ladders(mesh, rank, p):
     return out
 
 
+def suite_compress(mesh, rank, p):
+    """``optim.compression.compressed_psum`` of this rank's gradient and
+    error over the ("data",) group, for ``p["steps"]`` steps carrying the
+    error: each step's mean and new error."""
+    import torch
+
+    from repro_torch.optim.compression import compressed_psum
+
+    group = mesh.get_group("data")
+    err = torch.from_numpy(p["error"][rank])
+    out = []
+    for g in p["grads"]:
+        mean, err = compressed_psum(torch.from_numpy(g[rank]), err, group)
+        out.append((mean.numpy(), err.numpy()))
+    return out
+
+
 SUITES = {"peels": suite_peels, "drivers": suite_drivers,
-          "ladders": suite_ladders}
+          "ladders": suite_ladders, "compress": suite_compress}
 
 
 def graphs():
