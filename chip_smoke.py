@@ -195,17 +195,60 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
          ``lm_family._attn_fwd_flops``; remat's recompute not counted) over
          the wall and 989 TFLOP/s, beside that flop bound.
 
-Four main paths: the truss path (phases 3-5d), the maintenance path (8a),
-the mesh path (9a) and the LM path (phase 7, and 7b and 7c, each read on
-its own); 5e-5h, 8b-8e, 9b, 9c and 10 read their own launches, each through
-``run_phase`` (phase 10 must launch none).
+11. after phase 10: DIN at full width (``configs/din.py``: 10,000,000 items
+    and 1,000 categories, embed 18, seq 100, attention MLP 80-40, head
+    200-80; 180,054,282 parameters, random weights from a generator seeded
+    with 0 on the card; batches from ``RecsysStream(seed=0)``), each part
+    through ``run_phase``; its lookups go through B4 (bags of one row, sum):
+    11a. ``serve_p99`` (B = 512): ``din_scores`` on the card (B4, 4
+         launches) against the same call on the host (the take) within
+         DIN_TOL, and equal to the card's take route exactly; warm walls;
+    11b. ``serve_bulk`` (B = 262,144): both routes on the card, scores
+         equal exactly, walls and peaks; B4's four calls probed, each
+         checked against its plain version and timed beside its bound and
+         ``torch.index_select`` on the same ids;
+    11c. ``retrieval_cand``: 1 user x 1,000,000 candidates in 50 chunks (B4
+         102 launches), 512 candidates' scores against ``din_scores`` of
+         the same pairs within DIN_RETRIEVAL_TOL;
+    11e. ``sharded_lookup`` on a one-rank NCCL mesh ("model",): equal to
+         the take, one collective;
+    11d. ``train_batch`` (B = 65,536): DIN_TRAIN_STEPS steps of
+         ``make_train_step(din_loss)`` with AdamW at the family's OCFG (the
+         take route): losses finite, no B4 launch, ``kernel="bag"`` under a
+         gradient raising; step walls, AdamW share, peak;
+12. the GNNs (``configs/gnn_family.py``'s shapes), each through
+    ``run_phase``:
+    12a. each GNN arch at ``reduced_gnn`` and DIN at ``reduced_din``: loss
+         and every gradient on the card against the host (GNN_TOL,
+         GNN_GRAD_RTOL);
+    12b. one EquiformerV2 block at full width (C = 128, l_max 6, m_max 2,
+         8 heads) on 2,048 molecule edges, float32, card against host
+         within EQV2_GRAD_RTOL; the rotation-invariance check on the card;
+    12c. GNN_TRAIN_STEPS training steps each (``make_train_step``, the
+         family's OCFG): gat-cora on a Cora-sized graph (2,708 nodes, 1,433
+         features, 21,112 directed edges); GraphSAGE on ``minibatch_lg``
+         (1,024 seeds, fanouts 15-10: 169,984 nodes x 602 features,
+         168,960 edges) sampled uniformly from an Erdos-Renyi graph with
+         Reddit's 232,965 nodes and REDDIT_EDGES edges, and by trussness
+         from phase 4's graph (``sparsify.sampling_weights``, phi on the
+         card, held to phase 4a's); MeshGraphNet (15 layers) on the uniform
+         batch's subtree; EquiformerV2 (12 layers) on 128 molecules
+         (3,840 nodes, 16,384 edges, 8 edge chunks).  Losses finite, no
+         kernel launched; step walls, nodes/s, gnn_family's flops over the
+         wall against FP32_FLOPS_PER_S, AdamW share, peak.
+
+Five main paths: the truss path (phases 3-5d), the maintenance path (8a),
+the mesh path (9a), the LM path (phase 7, and 7b and 7c, each read on its
+own) and the DIN path (11a, 11b and 11c, each read on its own); 5e-5h,
+8b-8e, 9b, 9c, 10, 11d, 11e and 12 read their own launches, each through
+``run_phase`` (phases 10, 11d and 12c must launch none).
 Every launch counter is set to 0 just before each and read just after it,
 and each kernel of the path must have launched (B1 and B2 on the truss
-path, B1 on the maintenance and the mesh paths, B3 on the LM path; no
-model path reaches B4).  The kernels are then
+path, B1 on the maintenance and the mesh paths, B3 on the LM path, B4 on
+the DIN path).  The kernels are then
 checked and timed again on the largest inputs their path gave them (B3:
 the largest of its global and of its windowed calls, and at D = 128 the
-largest call of 7b and of 7c).  The line before
+largest call of 7b and of 7c; B4: each of 11b's four calls).  The line before
 the last is a JSON object listing every kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -381,6 +424,43 @@ LAYER_TOKENS, LAYER_INDEX, LAYER_GRAD_RTOL = 512, 5, 1e-4
 # 10c: gemma3-4b trained at full width, one TokenStream sequence a step
 TRAIN_SEQ, TRAIN_STEPS = 4096, 3
 BF16_FLOPS_PER_S = 989e12
+
+# phase 11: DIN at full width (configs/din.py).  11a holds the card's
+# scores (the B4 route) to the host's (the take) on the same weights: the
+# two sum the MLPs' float32 products (K = 72 to 200) in other orders; the
+# CPU tests hold the port to JAX at 1e-5 relative and 1e-6 absolute, and
+# DIN_TOL leaves ten times that.  11c holds 512
+# candidates' retrieval scores to din_scores of the same pairs at the
+# reference's own tolerance (tests/test_arch_smoke.py::
+# test_din_retrieval_consistent): the two run the same ops on batches of
+# other sizes.  DIN_BATCH_STEPS: the RecsysStream step of each shape's batch
+DIN_TOL = dict(rtol=1e-4, atol=1e-5)
+DIN_RETRIEVAL_TOL = dict(rtol=1e-5, atol=1e-5)
+DIN_RETRIEVAL_CHECK = 512
+DIN_TRAIN_STEPS = 3
+# phase 12: GNNs.  12a holds each reduced GNN arch and DIN on the card to
+# the host at the CPU tests' tolerances (tests/test_torch_gnn.py,
+# test_torch_din.py): the loss at GNN_TOL, each gradient leaf at
+# GNN_GRAD_RTOL with a floor of GNN_GRAD_ATOL times the tree's largest
+# gradient.  12b: one EquiformerV2 block at full width on EQV2_BLOCK_GRAPHS
+# molecules (2,048 directed edges), float32 (TF32 off), card against host:
+# each gradient's largest difference at most EQV2_GRAD_RTOL of its largest
+# magnitude (10b's limit: matmuls with K up to 896 and segment sums in other
+# orders).  12c: GNN_TRAIN_STEPS steps of each training run.  The uniform
+# GraphSAGE batch is sampled from an Erdos-Renyi graph with Reddit's
+# 232,965 nodes and a fiftieth of its 114,615,892 edges (REDDIT_EDGES, what
+# builds on the host in about 20 s: a fifth took 210.8 s on the H100's
+# host, 8 cores): the batch's shape does not depend on the edge count.
+# The molecule shape's 64 edges a graph are undirected (gnn_family's
+# _flat_sizes counts 2 x 64 directed ones), and gnn_molecule_batch takes
+# the directed count.  FP32_FLOPS_PER_S: the H100's float32 peak outside the
+# tensor cores, which these float32 models run on with TF32 off.
+GNN_TOL = dict(rtol=1e-5, atol=1e-6)
+GNN_GRAD_RTOL, GNN_GRAD_ATOL = 1e-4, 1e-6
+EQV2_BLOCK_GRAPHS, EQV2_GRAD_RTOL = 16, 1e-4
+GNN_TRAIN_STEPS = 3
+REDDIT_EDGES = 114_615_892 // 50
+FP32_FLOPS_PER_S = 67e12
 
 # phi digests of the JAX package (repro.core.peel.truss_decompose, default
 # route), made on the CPU from the repository root with:
@@ -2370,6 +2450,564 @@ def train_phases(torch, run_phase, phase_launches, dev) -> dict:
     return out
 
 
+def wall_s(torch, fn, reps: int = 3) -> float:
+    """Host wall of one ``fn()`` that ends in a device synchronisation,
+    the best of ``reps`` after one warm-up call."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t)
+    return best
+
+
+def to_device(torch, arrays: dict, dev) -> dict:
+    return {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+
+
+def timed_steps(torch, adamw, step, state, batch, n_steps: int, tag: str,
+                run_phase, flops: float = 0.0, items: int = 0) -> list:
+    """``n_steps`` calls of a ``make_train_step`` step on one batch under
+    ``run_phase(tag)``, ``adamw.update`` timed inside each: per step the
+    loss, grad_norm, wall, AdamW share, items/s, the step's flops over the
+    wall against FP32_FLOPS_PER_S and the peak device memory."""
+    update, upd, rows = adamw.update, [], []
+
+    def timed_update(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = update(*args, **kw)
+        torch.cuda.synchronize()
+        upd.append(time.perf_counter() - t)
+        return out
+
+    def run():
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, m = step(state["params"], state["opt"], batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            state.update(params=params, opt=opt)
+            rows.append(dict(
+                step=i, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                wall_s=wall, adamw_s=upd[-1], adamw_share=upd[-1] / wall,
+                items_per_s=items / wall, flops_per_s=flops / wall,
+                fp32_share=flops / wall / FP32_FLOPS_PER_S,
+                peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20))
+            say(f"[{tag}] step {i}: {rows[-1]}")
+
+    adamw.update = timed_update
+    try:
+        run_phase(tag, run)
+    finally:
+        adamw.update = update
+    if not np.all(np.isfinite([r["loss"] for r in rows]
+                              + [r["grad_norm"] for r in rows])):
+        raise AssertionError(f"{tag}: a loss or grad_norm is not finite: "
+                             f"{rows}")
+    return rows
+
+
+def summary(rows: list) -> str:
+    """One line of timed_steps' rows: losses, walls, the last step's rates
+    and shares, the peak."""
+    last = rows[-1]
+    return (f"losses {[round(r['loss'], 5) for r in rows]}, step walls "
+            f"{[round(r['wall_s'], 4) for r in rows]} s, "
+            f"{last['items_per_s']:.1f} items/s, "
+            f"{last['flops_per_s'] / 1e12:.3f} TFLOP/s (fp32 share "
+            f"{last['fp32_share']:.4f}), AdamW share "
+            f"{last['adamw_share']:.4f}, peak "
+            f"{max(r['peak_mib'] for r in rows):.1f} MiB")
+
+
+def din_phases(torch, run_phase, phase_launches, bk, bref, dev) -> dict:
+    """Phase 11: DIN at full width (configs/din.py; random weights from a
+    generator seeded with 0 on the card, batches from RecsysStream seed 0).
+    Returns the results and, under "b4", B4 on its DIN path: each of
+    11b's four calls (the hist and cand lookups on both tables, bags of one
+    row) checked against its plain version and timed beside its bound and
+    ``torch.index_select`` on the same ids."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import tree
+    from repro_torch.configs import cells, registry
+    from repro_torch.configs import recsys_family as fam
+    from repro_torch.core import distributed as D
+    from repro_torch.data.recsys_stream import RecsysStream
+    from repro_torch.models.recsys import din as DIN
+    from repro_torch.models.recsys import embedding as emb
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    cfg = registry.get_config("din")
+    n = cfg.param_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = DIN.din_init(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    out = dict(params=n, init_s=time.perf_counter() - t0,
+               param_mb=4 * n / 1e6)
+    if sum(a.numel() for a in tree.leaves(params)) != n:
+        raise AssertionError("11: din_init's parameters differ from "
+                             "param_count()")
+    say(f"[11] din at full width: {n:,} parameters ({out['param_mb']:.1f} "
+        f"MB float32), init {out['init_s']:.3f} s")
+
+    def batch(b, step):
+        return RecsysStream(cfg.n_items, cfg.n_cats, cfg.seq_len, b,
+                            seed=0).batch(step)
+
+    def b4_count(tag):
+        return phase_launches[tag]["B4"]
+
+    # 11a serve_p99: the B4 route on the card against the host's take
+    bh = batch(fam.SHAPES["serve_p99"]["batch"], 0)
+    bd = to_device(torch, bh, dev)
+    host = tree.map_leaves(lambda a: a.cpu(), params)
+    with torch.no_grad():
+        tag = "11a din serve_p99 (B4)"
+        card = run_phase(tag, lambda: DIN.din_scores(params, bd, cfg))
+        take = DIN.din_scores(params, bd, cfg, kernel="take")
+        want = DIN.din_scores(host, to_device(torch, bh, "cpu"), cfg)
+        err = float((card.cpu() - want).abs().max())
+        out["11a"] = dict(
+            batch=len(card), b4_launches=b4_count(tag),
+            equal_to_take=bool(torch.equal(card, take)), host_err=err,
+            score_absmax=float(want.abs().max()),
+            wall_s={k: wall_s(torch, lambda: DIN.din_scores(
+                params, bd, cfg, kernel=k)) for k in ("bag", "take")})
+    del host
+    say(f"[11a] {out['11a']}")
+    if out["11a"]["b4_launches"] != 4 or not out["11a"]["equal_to_take"]:
+        raise AssertionError(f"11a: {out['11a']}")
+    if not torch.allclose(card.cpu(), want, **DIN_TOL):
+        raise AssertionError(f"11a: the card's scores differ from the "
+                             f"host's by {err} (DIN_TOL {DIN_TOL})")
+
+    # 11b serve_bulk: both routes on the card, B4's four calls probed
+    bd = to_device(torch, batch(fam.SHAPES["serve_bulk"]["batch"], 1), dev)
+    probe = Probe(torch, bk, "embedding_bag",
+                  size=lambda t, i, **kw: i.numel(),
+                  bound=lambda t, i, **kw: b4_bound_ms(t, i),
+                  group=lambda t, i, **kw: (t.shape[0], i.shape[0]))
+    try:
+        with torch.no_grad():
+            tag = "11b din serve_bulk (B4)"
+            bag = run_phase(tag, lambda: DIN.din_scores(params, bd, cfg))
+            bag_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    finally:
+        b4_path_ms = probe.close()
+    with torch.no_grad():
+        tag_t = "11b din serve_bulk (take)"
+        take = run_phase(tag_t, lambda: DIN.din_scores(params, bd, cfg,
+                                                       kernel="take"))
+        take_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        out["11b"] = dict(
+            batch=len(bag), b4_launches=b4_count(tag),
+            take_launches=b4_count(tag_t),
+            equal_to_take=bool(torch.equal(bag, take)),
+            peak_mib={"bag": bag_peak, "take": take_peak},
+            wall_s={k: wall_s(torch, lambda: DIN.din_scores(
+                params, bd, cfg, kernel=k)) for k in ("bag", "take")},
+            b4_event_ms=b4_path_ms, b4_bound_ms=probe.bound_ms)
+    del bag, take
+    calls = []
+    for (V, N), ((table, idx), _) in sorted(probe.largest.items(),
+                                            key=lambda kv: -kv[0][1]):
+        err = check_b4(torch, bk, bref, table, idx, "sum",
+                       f"on DIN's path V={V} bags={N}")
+        ids = idx.reshape(-1).long()
+        calls.append(dict(
+            V=V, bags=N, L=idx.shape[1], max_abs_err=err,
+            ms=time_ms(torch, lambda: bk.embedding_bag(table, idx,
+                                                       mode="sum"), 20),
+            plain_ms=time_ms(torch, lambda: bref.embedding_bag(
+                table, idx, mode="sum"), 5),
+            library_ms=time_ms(torch, lambda: torch.index_select(
+                table, 0, ids), 20),
+            bound_ms=b4_bound_ms(table, idx)))
+        say(f"[11b] B4 on DIN's path, V={V:,} D={table.shape[1]} "
+            f"{N:,} bags of 1 (sum): {calls[-1]}")
+    del probe
+    out["11b"]["b4_calls"] = calls
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        out["11b"][f"b4_sum_{k}"] = sum(c[k] for c in calls)
+    say(f"[11b] {out['11b']}")
+    if out["11b"]["b4_launches"] != 4 or out["11b"]["take_launches"] != 0 \
+            or not out["11b"]["equal_to_take"]:
+        raise AssertionError(f"11b: {out['11b']}")
+
+    # 11c retrieval_cand: 1 user x 1,000,000 candidates in 50 chunks
+    cfg_r = dataclasses.replace(cfg, cand_chunks=fam.RETRIEVAL_CHUNKS)
+    n_cand = fam.SHAPES["retrieval_cand"]["n_candidates"]
+    rb = to_device(torch, RecsysStream(
+        cfg.n_items, cfg.n_cats, cfg.seq_len, 1, seed=0).retrieval_batch(
+            n_cand, seed=0), dev)
+    with torch.no_grad():
+        tag = "11c din retrieval_cand (B4)"
+        scores = run_phase(tag, lambda: DIN.din_retrieval(params, rb, cfg_r))
+        sel = torch.arange(0, n_cand, n_cand // DIN_RETRIEVAL_CHECK,
+                           device=dev)[:DIN_RETRIEVAL_CHECK]
+        k = len(sel)
+        pairs = {"hist_items": rb["hist_items"].expand(k, -1),
+                 "hist_cats": rb["hist_cats"].expand(k, -1),
+                 "hist_mask": rb["hist_mask"].expand(k, -1),
+                 "cand_item": rb["cand_items"][sel],
+                 "cand_cat": rb["cand_cats"][sel]}
+        want = DIN.din_scores(params, pairs, cfg)
+        out["11c"] = dict(
+            candidates=len(scores), chunks=cfg_r.cand_chunks,
+            b4_launches=b4_count(tag), finite=bool(torch.isfinite(
+                scores).all()),
+            pair_err=float((scores[sel] - want).abs().max()),
+            wall_s=wall_s(torch, lambda: DIN.din_retrieval(params, rb,
+                                                           cfg_r), 2),
+            peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    say(f"[11c] {out['11c']}")
+    if out["11c"]["b4_launches"] != 2 + 2 * cfg_r.cand_chunks or \
+            not out["11c"]["finite"] or \
+            not torch.allclose(scores[sel], want, **DIN_RETRIEVAL_TOL):
+        raise AssertionError(f"11c: {out['11c']}")
+    del scores, rb, pairs, want
+
+    # 11e: sharded_lookup on a one-rank NCCL mesh ("model",)
+    ids = bd["hist_items"][:512]
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                             world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+        c0 = D.COLLECTIVES
+        got = run_phase("11e din sharded lookup", lambda: emb.sharded_lookup(
+            params["item_emb"], ids, mesh))
+        out["11e"] = dict(ids=ids.numel(), collectives=D.COLLECTIVES - c0,
+                          equal_to_take=bool(torch.equal(
+                              got, params["item_emb"][ids.long()])))
+    finally:
+        tdist.destroy_process_group()
+    say(f"[11e] {out['11e']}")
+    if out["11e"]["collectives"] != 1 or not out["11e"]["equal_to_take"]:
+        raise AssertionError(f"11e: {out['11e']}")
+    del bd, ids, got
+
+    # 11d train_batch: make_train_step(din_loss), the take route
+    td = to_device(torch, batch(fam.SHAPES["train_batch"]["batch"], 2), dev)
+    try:
+        cells.value_and_grad(lambda p, b: DIN.din_scores(
+            p, b, cfg, kernel="bag").sum(), params, td)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("11d: kernel='bag' under a gradient did not "
+                             "raise")
+    state = {"params": params, "opt": adamw.init_state(params)}
+    del params
+    tag = "11d din train_batch"
+    rows = timed_steps(
+        torch, adamw, cells.make_train_step(
+            lambda p, b: DIN.din_loss(p, b, cfg), fam.OCFG),
+        state, td, DIN_TRAIN_STEPS, tag, run_phase,
+        flops=fam.model_flops(cfg, "train_batch"),
+        items=len(td["label"]))
+    out["11d"] = dict(batch=len(td["label"]), steps=rows,
+                      b4_launches=b4_count(tag), bag_refused=refused[:60])
+    say(f"[11d] din train_batch, {len(td['label'])} rows a step: "
+        f"{summary(rows)}; B4 launches {out['11d']['b4_launches']}; "
+        f"kernel='bag' under a gradient raised")
+    if out["11d"]["b4_launches"]:
+        raise AssertionError(f"11d: B4 launched in training: {out['11d']}")
+    del state, td
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"[11] wall {out['wall_s']:.1f} s")
+    return out
+
+
+def grads_close(torch, tree, got, want, rtol, atol_rel) -> float:
+    """The largest difference of two gradient trees (card, host), leaf by
+    leaf, over ``rtol`` times the leaf and ``atol_rel`` times the tree's
+    largest magnitude: at most 1 when every leaf is within the limit."""
+    floor = atol_rel * max(float(w.abs().max()) for w in tree.leaves(want))
+    worst = 0.0
+    for g, w in zip(tree.leaves(got), tree.leaves(want)):
+        excess = (g.cpu() - w).abs() / (rtol * w.abs() + floor)
+        worst = max(worst, float(excess.max()))
+    return worst
+
+
+def reduced_card_vs_host(torch, tree, registry, make_reduced, cells,
+                         dev) -> dict:
+    """12a: each GNN arch at reduced_gnn and DIN at reduced_din, from the
+    same host parameters and batch: the loss and every gradient on the card
+    against the host."""
+    out = {}
+    cpu = torch.device("cpu")
+    for arch in registry.GNN_ARCHS + registry.RECSYS_ARCHS:
+        cfg, init_fn, loss_fn, batch_fn = make_reduced(arch, device=cpu)
+        host = init_fn()
+        card = tree.map_leaves(lambda x: x.to(dev, copy=True), host)
+        bh = batch_fn(0)
+        bd = {k: v.to(dev) for k, v in bh.items()}
+        lh, gh = cells.value_and_grad(loss_fn, host, bh)
+        ld, gd = cells.value_and_grad(loss_fn, card, bd)
+        worst = grads_close(torch, tree, gd, gh, GNN_GRAD_RTOL,
+                            GNN_GRAD_ATOL)
+        out[arch] = dict(loss=float(ld), loss_err=abs(float(ld) - float(lh)),
+                         grad_excess=worst)
+        if not np.isclose(float(ld), float(lh), **GNN_TOL) or worst > 1:
+            raise AssertionError(f"12a {arch}: the card differs from the "
+                                 f"host: {out[arch]}")
+    return out
+
+
+def eqv2_block_card_vs_host(torch, tree, G, W, graphgen, registry,
+                            dev) -> dict:
+    """12b: one EquiformerV2 block at full width (C = 128, l_max 6, m_max
+    2, 8 heads) on EQV2_BLOCK_GRAPHS molecules, float32, card against host:
+    ``x + block(x)`` from a random x (every irrep slot set, so every SO(2)
+    weight is reached) and the gradients of ``sum(out * cotangent)`` with
+    respect to x and every block weight.  Weights and inputs from a host
+    generator seeded with 0."""
+    cfg = dataclasses.replace(registry.get_config("equiformer-v2"),
+                              n_layers=1)
+    b = graphgen.gnn_molecule_batch(EQV2_BLOCK_GRAPHS, 30, 2 * 64, cfg.d_in,
+                                    seed=0)
+    gen = torch.Generator().manual_seed(0)
+    blk = G.eqv2_init(gen, cfg)["blocks"][0]
+    n, E = len(b["node_feat"]), len(b["edge_index"])
+    x = torch.randn((n, cfg.n_sph, cfg.d_hidden), generator=gen)
+    cot = torch.randn((n, cfg.n_sph, cfg.d_hidden), generator=gen)
+    res = []
+    for where in (dev, torch.device("cpu")):
+        ei = torch.as_tensor(b["edge_index"], device=where).long()
+        pos = torch.as_tensor(b["positions"], device=where)
+        src, dst = ei[:, 0], ei[:, 1]
+        d_vec = pos[dst] - pos[src]
+        rbf = G._rbf(torch.linalg.norm(d_vec, dim=-1) + 1e-9, cfg.n_rbf)
+        D = W.wigner_stack(W.rotation_to_z(d_vec), cfg.l_max)
+        mask = torch.ones(E, dtype=torch.bool, device=where)
+        leaves = [a.to(where).requires_grad_(True) for a in
+                  tree.leaves(blk)] + [x.to(where).requires_grad_(True)]
+        lp = tree.unflatten_like(blk, leaves[:-1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = G._eqv2_block(leaves[-1], lp, src, dst, D, rbf, mask, cfg)
+        grads = torch.autograd.grad((out * cot.to(where)).sum(), leaves)
+        torch.cuda.synchronize()
+        res.append((grads, (time.perf_counter() - t0) * 1e3, out.detach()))
+    (gd, card_ms, od), (gh, host_ms, oh) = res
+    rel = [float((g.cpu() - h).abs().max() / h.abs().max())
+           for g, h in zip(gd, gh)]
+    out_rel = float((od.cpu() - oh).abs().max() / oh.abs().max())
+    r = dict(nodes=n, edges=E, leaves=len(rel), grad_rel_err_max=max(rel),
+             grad_rel_err_min=min(rel), out_rel_err=out_rel, card_ms=card_ms,
+             host_ms=host_ms)
+    say(f"[12b] equiformer-v2 block at full width, float32, {E} edges, "
+        f"card against host: {r}")
+    if max(rel) > EQV2_GRAD_RTOL or not out_rel <= EQV2_GRAD_RTOL:
+        raise AssertionError(f"12b: a gradient (or the output) differs "
+                             f"between the card and the host beyond "
+                             f"EQV2_GRAD_RTOL: {rel}")
+    return r
+
+
+def eqv2_rotation_invariance(torch, G, make_reduced, dev) -> dict:
+    """12b: ``tests/test_arch_smoke.py``'s rotation-invariance check on the
+    card: the reduced EquiformerV2's output with rotated positions equals
+    the unrotated one within the reference's tolerance (1e-3, 1e-4)."""
+    cfg, init_fn, _, batch_fn = make_reduced("equiformer-v2", device=dev)
+    params, batch = init_fn(), batch_fn(0)
+    q, r = np.linalg.qr(np.random.default_rng(1).standard_normal((3, 3)))
+    R = q * np.sign(np.diag(r))
+    if np.linalg.det(R) < 0:
+        R[:, 0] = -R[:, 0]
+    with torch.no_grad():
+        out1 = G.eqv2_forward(params, batch, cfg)
+        out2 = G.eqv2_forward(params, dict(
+            batch, positions=batch["positions"] @ torch.as_tensor(
+                R.T, dtype=torch.float32, device=dev)), cfg)
+    err = float((out1 - out2).abs().max())
+    say(f"[12b] rotation invariance on the card: max abs difference {err} "
+        f"(outputs up to {float(out1.abs().max()):.4g})")
+    if not torch.allclose(out1, out2, rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"12b: rotated positions moved the output by "
+                             f"{err}")
+    return dict(max_abs_diff=err)
+
+
+def gnn_batches(graphgen, sampler, sparsify, fam, n15, e15, phi15,
+                dev) -> dict:
+    """12c's host batches: (nodes, edges, arrays) by run.  gat-cora's
+    Cora-sized graph through gnn_full_batch; GraphSAGE's minibatch_lg from
+    an Erdos-Renyi graph with Reddit's nodes (REDDIT_EDGES edges), uniform,
+    and from phase 4's R-MAT graph weighted by ``sampling_weights`` (its phi
+    on the card, held to phase 4a's); MeshGraphNet on the uniform batch's
+    subtree with gnn_full_batch's positions, edge features and vector
+    targets; EquiformerV2 on the molecule shape."""
+    out, info = {}, {}
+    sh = fam.SHAPES["full_graph_sm"]
+    b = graphgen.gnn_full_batch(
+        sh["n"], graphgen.erdos_renyi(sh["n"], sh["e"], seed=0), sh["d_feat"],
+        sh["n_classes"], seed=0)
+    out["gat"] = {k: b[k] for k in ("node_feat", "edge_index", "edge_mask",
+                                    "labels", "label_mask")}
+    sh = sh_lg = fam.SHAPES["minibatch_lg"]
+    t0 = time.perf_counter()
+    csr = sampler.CSR.from_edges(
+        sh["n"], graphgen.erdos_renyi(sh["n"], REDDIT_EDGES, seed=0))
+    info["reddit_graph_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((sh["n"], sh["d_feat"]), dtype=np.float32)
+    labels = rng.integers(0, sh["n_classes"], sh["n"]).astype(np.int32)
+    t0 = time.perf_counter()
+    out["sage_uniform"] = sampler.minibatch(
+        csr, feats, labels, sh["batch_nodes"], sh["fanouts"], rng)
+    info["uniform_sample_s"] = time.perf_counter() - t0
+    del csr, feats
+    t0 = time.perf_counter()
+    w = sparsify.sampling_weights(n15, e15, device=dev)
+    info["truss_weights_s"] = time.perf_counter() - t0
+    want = np.maximum(phi15.astype(np.float64) - 1.0, 1.0)
+    if not np.allclose(w, want / want.sum(), rtol=1e-6, atol=0):
+        raise AssertionError("12c: sampling_weights' phi differs from phase "
+                             "4a's")
+    feats = rng.standard_normal((n15, sh["d_feat"]), dtype=np.float32)
+    labels = rng.integers(0, sh["n_classes"], n15).astype(np.int32)
+    t0 = time.perf_counter()
+    out["sage_truss"] = sampler.minibatch(
+        sampler.CSR.from_edges(n15, e15, edge_w=w), feats, labels,
+        sh["batch_nodes"], sh["fanouts"], rng)
+    info["truss_sample_s"] = time.perf_counter() - t0
+    mb = out["sage_uniform"]
+    n = len(mb["node_feat"])
+    pos = rng.standard_normal((n, 3)).astype(np.float32)
+    out["mgn"] = dict(mb, edge_feat=graphgen.edge_features(
+        pos, mb["edge_index"]), targets=rng.standard_normal(
+            (n, 3)).astype(np.float32), node_mask=np.ones(n, np.float32))
+    for k in ("labels", "label_mask"):
+        del out["mgn"][k]
+    sh = fam.SHAPES["molecule"]
+    b = graphgen.gnn_molecule_batch(sh["n_graphs"], sh["nodes"],
+                                    2 * sh["edges"], sh["d_feat"], seed=0)
+    out["eqv2"] = {k: b[k] for k in ("node_feat", "edge_index", "edge_mask",
+                                     "positions", "targets", "node_mask")}
+    want = {"sage_uniform": "minibatch_lg", "sage_truss": "minibatch_lg",
+            "mgn": "minibatch_lg", "eqv2": "molecule"}
+    for name, shape in want.items():
+        # minibatch_lg's edges before the cell layer's padding to 512
+        n, e = fam._flat_sizes(shape)
+        if shape == "minibatch_lg":
+            seeds, (f1, f2) = sh_lg["batch_nodes"], sh_lg["fanouts"]
+            e = seeds * (f1 + f1 * f2)
+        got = (len(out[name]["node_feat"]), len(out[name]["edge_index"]))
+        if got != (n, e):
+            raise AssertionError(f"12c {name}: (nodes, edges) {got}, "
+                                 f"{shape} has {(n, e)}")
+    info["masked_edges"] = {k: int((~out[k]["edge_mask"]).sum())
+                            for k in ("sage_uniform", "sage_truss")}
+    return out, info
+
+
+def gnn_train_config(fam, registry, arch: str, shape: str):
+    """An arch's config for a shape: the input width (and classes) of the
+    shape's source; EquiformerV2's molecule edge chunks."""
+    sh, base = fam.SHAPES[shape], registry.get_config(arch)
+    if arch in ("gat-cora", "graphsage-reddit"):
+        return dataclasses.replace(base, d_in=sh["d_feat"],
+                                   n_classes=sh["n_classes"])
+    if arch == "meshgraphnet":
+        return dataclasses.replace(base, d_node_in=sh["d_feat"])
+    return dataclasses.replace(base, d_in=sh["d_feat"],
+                               edge_chunks=fam.MOLECULE_EDGE_CHUNKS)
+
+
+def gnn_train_flops(fam, arch: str, cfg, n: int, e: int) -> float:
+    """gnn_family's flops of one training step on n nodes and e edges."""
+    if arch == "gat-cora":
+        return fam.gat_flops(cfg, n, e, cfg.d_in, cfg.n_classes)
+    if arch == "graphsage-reddit":
+        return fam.sage_flops(cfg, n, e, cfg.d_in)
+    if arch == "meshgraphnet":
+        return fam.mgn_flops(cfg, n, e)
+    return fam.eqv2_flops(cfg, n, e)
+
+
+def gnn_phases(torch, run_phase, phase_launches, n15, e15, phi15,
+               dev) -> dict:
+    """Phase 12: the GNN archs (and DIN's reduced config in 12a)."""
+    from repro_torch import tree
+    from repro_torch.configs import cells, registry
+    from repro_torch.configs import gnn_family as fam
+    from repro_torch.configs.reduced import make_reduced
+    from repro_torch.core import sparsify
+    from repro_torch.data import graphgen
+    from repro_torch.models.gnn import models as G
+    from repro_torch.models.gnn import sampler
+    from repro_torch.models.gnn import wigner as W
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    out = {"12a": run_phase("12a reduced GNN archs and DIN card against host",
+                            lambda: reduced_card_vs_host(
+                                torch, tree, registry, make_reduced, cells,
+                                dev))}
+    say(f"[12a] card against host: {json.dumps(out['12a'])}")
+    out["12b"] = run_phase("12b equiformer-v2 block card against host",
+                           lambda: eqv2_block_card_vs_host(
+                               torch, tree, G, W, graphgen, registry, dev))
+    out["12b"]["rotation"] = eqv2_rotation_invariance(torch, G, make_reduced,
+                                                      dev)
+    t0 = time.perf_counter()
+    batches, info = gnn_batches(graphgen, sampler, sparsify, fam, n15, e15,
+                                phi15, dev)
+    info["host_batches_s"] = time.perf_counter() - t0
+    say(f"[12c] host batches: {info}")
+    out["12c"] = {"host": info}
+    runs = (
+        ("gat", "gat-cora", "full_graph_sm", G.gat_init, G.gat_loss),
+        ("sage_uniform", "graphsage-reddit", "minibatch_lg", G.sage_init,
+         G.sage_loss),
+        ("sage_truss", "graphsage-reddit", "minibatch_lg", G.sage_init,
+         G.sage_loss),
+        ("mgn", "meshgraphnet", "minibatch_lg", G.mgn_init, G.mgn_loss),
+        ("eqv2", "equiformer-v2", "molecule", G.eqv2_init, G.eqv2_loss))
+    for name, arch, shape, init, loss in runs:
+        cfg = gnn_train_config(fam, registry, arch, shape)
+        b = batches.pop(name)
+        n, e = len(b["node_feat"]), len(b["edge_index"])
+        flops = gnn_train_flops(fam, arch, cfg, n, e)
+        torch.cuda.empty_cache()
+        params = init(torch.Generator(device=dev).manual_seed(0), cfg)
+        state = {"params": params, "opt": adamw.init_state(params)}
+        n_params = sum(a.numel() for a in tree.leaves(params))
+        del params
+        tag = f"12c train {arch} {shape}" + (
+            " truss-weighted" if name == "sage_truss" else "")
+        rows = timed_steps(
+            torch, adamw, cells.make_train_step(
+                lambda p, bb: loss(p, bb, cfg), fam.OCFG),
+            state, to_device(torch, b, dev), GNN_TRAIN_STEPS, tag, run_phase,
+            flops=flops, items=n)
+        out["12c"][name] = dict(arch=arch, shape=shape, nodes=n, edges=e,
+                                params=n_params, flops=flops, steps=rows)
+        say(f"[12c] {name}: {arch} x {shape}, {n:,} nodes, {e:,} edges, "
+            f"{n_params:,} parameters, {flops:.4g} flops a step: "
+            f"{summary(rows)}")
+        del state, b
+        if any(phase_launches[tag].values()):
+            raise AssertionError(f"12c {name}: a kernel launched: "
+                                 f"{phase_launches[tag]}")
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"[12] wall {out['wall_s']:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     import torch
     import torch.distributed as tdist
@@ -3038,6 +3676,12 @@ def main(argv) -> int:
     train = train_phases(torch, run_phase, phase_launches, dev)
     say(f"[10] {json.dumps(train)}")
 
+    # -- phases 11 and 12: DIN (B4's path) and the GNNs at full width -------
+    din = din_phases(torch, run_phase, phase_launches, bk, bref, dev)
+    say(f"[11] {json.dumps(din)}")
+    gnn = gnn_phases(torch, run_phase, phase_launches, n15, e15, phi15, dev)
+    say(f"[12] {json.dumps(gnn)}")
+
     # -- kernels on the largest inputs the main path gave them ---------------
     kernels = []
     (sup, alive, rm, tris, n_rows), _ = p1.largest[None]
@@ -3178,6 +3822,34 @@ def main(argv) -> int:
               by_window=by_window, design=B3_DESIGN, bf16_d256=b3_tc[256],
               bf16_d128=b3_tc[128])
     kernels.append(b3)
+    # B4 on its DIN path (phases 11a-11c): the line's numbers are the
+    # path's largest call (11b's history lookup on item_emb, bags of one
+    # row, sum) against torch.index_select; phase 2's serve_bulk bags of 100
+    # (mean, against F.embedding_bag) are kept beside them
+    l100 = {k: b4.pop(k) for k in (
+        "shape", "mode", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "library_ms", "graph_ms", "gather_floor_ms",
+        "traffic_derived_from_shapes")}
+    b4.pop("note")
+    big = din["11b"]["b4_calls"][0]
+    b4_paths = {"din serve_p99 (11a)": din["11a"]["b4_launches"],
+                "din serve_bulk (11b)": din["11b"]["b4_launches"],
+                "din retrieval_cand (11c)": din["11c"]["b4_launches"]}
+    b4.update(
+        launches=sum(b4_paths.values()), launches_by_path=b4_paths,
+        max_abs_err=max(max(c["max_abs_err"] for c in din["11b"]["b4_calls"]),
+                        l100["max_abs_err"]),
+        ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+        library_ms=big["library_ms"], library="torch.index_select",
+        shape=[big["V"], DIN_D, big["bags"], big["L"]], mode="sum",
+        path_calls=din["11b"]["b4_calls"],
+        path_event_ms=din["11b"]["b4_event_ms"],
+        path_bound_ms=din["11b"]["b4_bound_ms"],
+        serve_bulk_l100=dict(l100, library="F.embedding_bag"))
+    say(f"[11] B4 on DIN's path: launches {b4_paths}; on the path's largest "
+        f"call {b4['shape']} (V, D, bags, L): kernel {b4['ms']:.4f} ms, "
+        f"plain {b4['plain_ms']:.4f} ms, index_select "
+        f"{b4['library_ms']:.4f} ms, bound {b4['bound_ms']:.4f} ms (bytes)")
     kernels.append(b4)
     say(f"[all] wall {time.perf_counter() - t_all:.1f} s; {smi}")
     say(json.dumps({"kernels": kernels}))

@@ -1,4 +1,7 @@
-"""LM configurations of the port: copies of the JAX package's LM configs
-(dense: ``gemma3_4b``, ``granite_8b``, ``qwen2_5_14b``; MoE: ``phi3_5_moe``,
-``moonshot_v1_16b``) with torch dtypes, the arch registry, the reduced
-smoke-test sizes (``reduced``) and the training step (``cells``)."""
+"""Configurations of the port: copies of the JAX package's arch configs
+(dense LMs: ``gemma3_4b``, ``granite_8b``, ``qwen2_5_14b``; MoE:
+``phi3_5_moe``, ``moonshot_v1_16b``; GNNs: ``meshgraphnet``,
+``equiformer_v2``, ``graphsage_reddit``, ``gat_cora``; ``din``) with torch
+dtypes, the families' shapes and flop counts (``gnn_family``,
+``recsys_family``), the arch registry, the reduced smoke-test sizes
+(``reduced``) and the training step (``cells``)."""

@@ -1,0 +1,6 @@
+"""graphsage-reddit [gnn] — 2 layers, d_hidden=128, mean aggregator,
+sample sizes 25-10 (the minibatch shape trains with fanouts 15-10).
+[arXiv:1706.02216]  The cells wait for the cell layer."""
+from repro_torch.models.gnn.models import GraphSAGEConfig
+
+CONFIG = GraphSAGEConfig(n_layers=2, d_hidden=128, aggregator="mean")

@@ -1,6 +1,8 @@
-"""LM architecture registry: ``--arch <id>`` -> config.
+"""Architecture registry: ``--arch <id>`` -> config.
 
-The names are the JAX package's LM archs, in its order."""
+The names are the JAX package's ten archs, in its order: five LMs, four
+GNNs and DIN.  ``get_module``, ``get_cells``, ``get_cell`` and
+``all_cells`` wait for the cell layer."""
 from __future__ import annotations
 
 import importlib
@@ -11,11 +13,21 @@ ARCHS = {
     "granite-8b": "repro_torch.configs.granite_8b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe",
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b",
+    "meshgraphnet": "repro_torch.configs.meshgraphnet",
+    "equiformer-v2": "repro_torch.configs.equiformer_v2",
+    "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
+    "gat-cora": "repro_torch.configs.gat_cora",
+    "din": "repro_torch.configs.din",
 }
-LM_ARCHS = list(ARCHS)
+
+LM_ARCHS = [a for a in ARCHS if a in (
+    "qwen2.5-14b", "gemma3-4b", "granite-8b",
+    "phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b")]
+GNN_ARCHS = ["meshgraphnet", "equiformer-v2", "graphsage-reddit", "gat-cora"]
+RECSYS_ARCHS = ["din"]
 
 
 def get_config(arch: str):
     if arch not in ARCHS:
-        raise ValueError(f"unknown arch {arch!r}; LM archs: {LM_ARCHS}")
+        raise ValueError(f"unknown arch {arch!r}; archs: {list(ARCHS)}")
     return importlib.import_module(ARCHS[arch]).CONFIG

@@ -1,2 +1,2 @@
-"""Synthetic data: graph generators (``graphgen``) and the LM token stream
-(``tokens``)."""
+"""Synthetic data: graph generators and GNN batches (``graphgen``), the LM
+token stream (``tokens``) and the DIN click stream (``recsys_stream``)."""

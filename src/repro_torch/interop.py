@@ -1,7 +1,7 @@
 """State carried across from the JAX package.
 
 The JAX package keeps its host state in numpy: a ``Graph``'s arrays, a
-partition bucket's arrays, an LM's parameter tree.  These functions read
+partition bucket's arrays, a model's parameter tree.  These functions read
 such an object by its attribute or key names (duck typing: nothing of
 ``repro`` is imported) and build the port's own objects and device tensors,
 so that a test can hand both packages the same graph, bucket or weights.
@@ -72,6 +72,14 @@ def lm_params(tree, device=None) -> dict:
     if "lm_head" in tree:
         out["lm_head"] = _tensor(tree["lm_head"], dev)
     return out
+
+
+def param_tree(tree, device=None):
+    """A DIN or GNN parameter tree (dicts, lists and ``(w, b)`` tuples of
+    arrays, the layout of ``models.recsys.din`` and ``models.gnn``) as the
+    same tree of tensors on ``device``, every array bit for bit."""
+    dev = resolve_device(device)
+    return map_leaves(lambda a: _tensor(a, dev), tree)
 
 
 def adamw_state(tree, device=None) -> dict:

@@ -1,12 +1,13 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>
 [--steps N] [--device cpu]``.
 
-Trains the REDUCED config (``configs/reduced.py::make_reduced``) end to
-end, as the JAX package's ``launch/train.py`` does: the synthetic token
-stream, AdamW with linear warmup over the first twentieth of the steps and
-cosine decay, checkpoints every ``--ckpt-every`` steps under
-``--ckpt-dir/<arch>`` (a rerun resumes from the latest), on the CUDA card
-unless ``--device`` says otherwise.
+Trains the REDUCED config of any arch of the registry (LM, GNN or DIN;
+``configs/reduced.py::make_reduced``) end to end, as the JAX package's
+``launch/train.py`` does: the arch's synthetic batches, AdamW with linear
+warmup over the first twentieth of the steps and cosine decay,
+checkpoints every ``--ckpt-every`` steps under ``--ckpt-dir/<arch>`` (a
+rerun resumes from the latest), on the CUDA card unless ``--device`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from repro_torch.tree import leaves
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=registry.LM_ARCHS)
+    ap.add_argument("--arch", required=True, choices=list(registry.ARCHS))
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-dir", default=os.path.join(
@@ -50,7 +51,8 @@ def main(argv=None):
               f"on {dev}")
         return {"params": params, "opt": adamw.init_state(params)}
 
-    step = make_train_step(loss_fn, ocfg, microbatches=cfg.microbatches)
+    step = make_train_step(loss_fn, ocfg,
+                           microbatches=getattr(cfg, "microbatches", 1))
 
     def train_step(state, batch):
         params, opt, m = step(state["params"], state["opt"], batch)

@@ -1,2 +1,3 @@
 """Models of the port: the decoder-only LM family (``transformer``) with its
-building blocks (``common``) and long-sequence attention (``attention``)."""
+building blocks (``common``) and long-sequence attention (``attention``);
+the four GNN archs (``gnn``) and DIN (``recsys``)."""

@@ -1,6 +1,7 @@
 """Shared model building blocks on tensors: initialisation from an explicit
-``torch.Generator``, RMS norm, SwiGLU, rotary embeddings, the token-mean
-cross-entropy and the all-finite check of a training step.
+``torch.Generator``, RMS and layer norm, SwiGLU, rotary embeddings, the
+token-mean cross-entropy, the binary cross-entropy on logits and the
+all-finite check of a training step.
 
 The reference's mesh helpers (``shard``, ``dp_spec``) are the identity
 without a mesh and are left out; the LM's mesh paths are ROADMAP A14.
@@ -44,6 +45,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * (1.0 + weight.float())).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last dim in float32 (biased variance); x's dtype
+    out."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * weight.float() + bias.float()).to(x.dtype)
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """silu in float32, cast to the gate's dtype, times ``up``."""
     return F.silu(gate.float()).to(gate.dtype) * up
@@ -81,6 +93,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def bce_with_logits(logits: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy of ``logits`` against 0/1 ``labels``, in
+    float32, in the overflow-free form ``max(z, 0) - z y + log1p(e^-|z|)``.
+    At z = 0 the gradient takes the reference's one-sided derivatives (max:
+    1/2 to each side; |z|: 1), so it equals JAX's there too."""
+    z, y = logits.float(), labels.float()
+    abs_z = torch.where(z >= 0, z, -z)
+    return (torch.maximum(z, torch.zeros_like(z)) - z * y
+            + torch.log1p(torch.exp(-abs_z))).mean()
 
 
 def finite_check(tree) -> torch.Tensor:

@@ -304,8 +304,34 @@ def suite_compress(mesh, rank, p):
     return out
 
 
+def suite_lookup(mesh, rank, p):
+    """``models.recsys.embedding.sharded_lookup`` of ``p["ids"]`` in
+    ``p["table"]`` over a ("model",) mesh of every rank, and over the
+    ("data",) mesh (no such axis: the take); the collectives it ran; and
+    the ``ValueError`` of a table whose rows do not split evenly."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import distributed as D
+    from repro_torch.models.recsys.embedding import sharded_lookup
+
+    model = init_device_mesh("cpu", (mesh.size(),),
+                             mesh_dim_names=("model",))
+    table, ids = torch.from_numpy(p["table"]), torch.from_numpy(p["ids"])
+    c0 = D.COLLECTIVES
+    out = {"model": sharded_lookup(table, ids, model).numpy()}
+    out["collectives"] = D.COLLECTIVES - c0
+    out["data"] = sharded_lookup(table, ids, mesh).numpy()
+    try:
+        sharded_lookup(torch.from_numpy(p["uneven"]), ids, model)
+    except ValueError as e:
+        out["uneven"] = str(e)
+    return out
+
+
 SUITES = {"peels": suite_peels, "drivers": suite_drivers,
-          "ladders": suite_ladders, "compress": suite_compress}
+          "ladders": suite_ladders, "compress": suite_compress,
+          "lookup": suite_lookup}
 
 
 def graphs():
