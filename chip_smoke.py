@@ -191,7 +191,7 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
          of the largest leaf.  It prints the init time, and per step the
          wall, the forward-and-backward and AdamW shares, tokens/s, the peak
          device memory and ``train_mfu``: 6 x ``param_count()`` x tokens plus
-         3 x the attention's forward flops (the JAX package's
+         3 x the attention's forward flops (the port's
          ``lm_family._attn_fwd_flops``; remat's recompute not counted) over
          the wall and 989 TFLOP/s, beside that flop bound.
 
@@ -236,16 +236,48 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
          (3,840 nodes, 16,384 edges, 8 edge chunks).  Losses finite, no
          kernel launched; step walls, nodes/s, gnn_family's flops over the
          wall against FP32_FLOPS_PER_S, AdamW share, peak.
+13. the cell and dry-run layer, each part through ``run_phase``:
+    13a. ``python -m repro_torch.launch.dryrun --all --jobs DRYRUN_JOBS``:
+         every cell of the registry traced on pod16x16 (a fake 256-rank
+         group, no card) by a child process started after phase 1 that
+         runs beside phases 2-12 at the lowest CPU priority (nice 19, so
+         those phases keep their host); the smoke waits at most
+         DRYRUN_WAIT_S for it.  Every record must be ok;
+         ``report.render``'s table, the bottleneck counts, each cell's
+         trace seconds and the cells whose per-device arg + temp bytes fit
+         80 GiB are printed;
+    13b. CELL_RUNS (the cells whose whole inputs fit one card) built on a
+         one-rank NCCL (1, 1) mesh, their args made on the card from a
+         generator seeded with 0 (ids in range, masks 0/1), run once: the
+         args' bytes equal the (1, 1) dry run's arg_bytes exactly, the
+         card's peak less what was held before the step is within
+         TEMP_FACTOR of its temp_bytes (both raised to TEMP_FLOOR), the
+         outputs are finite, B4 launches CELL_B4 times on DIN's serve and
+         retrieval cells and nothing launches elsewhere; walls and
+         model_flops over the wall (mfu);
+    13c. both ring losses (``models/gnn/distributed.py``) at
+         ogb_products' per-device block on pod16x16 (RING_W nodes a rank,
+         RING_EB edges a bucket, every bucket full; GraphSAGE-reddit and
+         EquiformerV2 at their configs, d_in 100, 47 classes) on a
+         one-rank NCCL (1, 1) mesh and on two gloo ranks sharing the card
+         (child processes): the loss and every gradient against the plain
+         loss on the same graph on the card (RING_LOSS_RTOL,
+         RING_GRAD_REL) with a float32 payload; each rank's forward-and-
+         backward wall, peak beside x_loc plus one block and collective
+         calls; on the NCCL rank also the forward alone, the collectives'
+         counts and bytes (``hlo_analysis``) and EquiformerV2's bf16
+         payload timed beside the float32 one; one AdamW step finite.
 
-Five main paths: the truss path (phases 3-5d), the maintenance path (8a),
+Six main paths: the truss path (phases 3-5d), the maintenance path (8a),
 the mesh path (9a), the LM path (phase 7, and 7b and 7c, each read on its
-own) and the DIN path (11a, 11b and 11c, each read on its own); 5e-5h,
-8b-8e, 9b, 9c, 10, 11d, 11e and 12 read their own launches, each through
-``run_phase`` (phases 10, 11d and 12c must launch none).
+own), the DIN path (11a, 11b and 11c, each read on its own) and the cell
+path (13b, each cell read on its own); 5e-5h, 8b-8e, 9b, 9c, 10, 11d, 11e,
+12, 13a and 13c read their own launches, each through ``run_phase``
+(phases 10, 11d, 12c and 13c must launch none).
 Every launch counter is set to 0 just before each and read just after it,
 and each kernel of the path must have launched (B1 and B2 on the truss
 path, B1 on the maintenance and the mesh paths, B3 on the LM path, B4 on
-the DIN path).  The kernels are then
+the DIN path and on DIN's serve and retrieval cells).  The kernels are then
 checked and timed again on the largest inputs their path gave them (B3:
 the largest of its global and of its windowed calls, and at D = 128 the
 largest call of 7b and of 7c; B4: each of 11b's four calls).  The line before
@@ -263,6 +295,7 @@ the tracing.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import hashlib
 import json
@@ -461,6 +494,38 @@ EQV2_BLOCK_GRAPHS, EQV2_GRAD_RTOL = 16, 1e-4
 GNN_TRAIN_STEPS = 3
 REDDIT_EDGES = 114_615_892 // 50
 FP32_FLOPS_PER_S = 67e12
+
+# phase 13: the cell and dry-run layer.  13a: the dry run of every cell on
+# pod16x16 (a fake 256-rank group, no card) in a child process started when
+# the smoke starts, DRYRUN_JOBS worker processes, all at nice 19 so that
+# the host-bound phases 2-12 beside it keep their cores; the smoke waits for
+# it at most DRYRUN_WAIT_S once phase 12 is done (phases 1-12 end about
+# 700 s in and the child has taken 518-686 s; 300 s more keeps the smoke
+# under 1,100 s even then).  2pod16x16 is not traced here:
+# its LM training cells and EquiformerV2's 512-step ring take longer than
+# the smoke's budget on the host.  13b runs CELL_RUNS for real on a one-rank
+# NCCL (1, 1) mesh, each against the dry run's (1, 1) record of the same
+# cell (DRY11_CHILD): arg_bytes exactly, and temp_bytes against the card's
+# max_memory_allocated less what was held before the step, within a factor
+# TEMP_FACTOR of each other once both are raised to TEMP_FLOOR (allocator
+# rounding and small workspaces are not in the dry run).  B4 launches on
+# DIN's serve and retrieval cells (CELL_B4) and nowhere else.  13c: both
+# ring losses at the production per-device block of ogb_products on
+# pod16x16 (RING_W nodes a rank, RING_EB edges a bucket, full buckets), on
+# a one-rank NCCL mesh and on two gloo ranks sharing the card
+# (RING_CHILD), against the plain losses on the same graph on the card at
+# the reference test's tolerances (RING_LOSS_RTOL, RING_GRAD_REL).
+DRYRUN_JOBS, DRYRUN_WAIT_S = 7, 300
+CELL_RUNS = (("gat-cora", "full_graph_sm"), ("gat-cora", "molecule"),
+             ("graphsage-reddit", "full_graph_sm"),
+             ("graphsage-reddit", "minibatch_lg"),
+             ("meshgraphnet", "molecule"), ("equiformer-v2", "molecule"),
+             ("din", "train_batch"), ("din", "serve_p99"),
+             ("din", "serve_bulk"), ("din", "retrieval_cand"))
+CELL_B4 = {"serve_p99": 4, "serve_bulk": 4, "retrieval_cand": 102}
+TEMP_FACTOR, TEMP_FLOOR = 2.0, 64 * 2 ** 20
+RING_P, RING_W, RING_EB = 256, 9567, 3775
+RING_LOSS_RTOL, RING_GRAD_REL = 2e-4, 5e-3
 
 # phi digests of the JAX package (repro.core.peel.truss_decompose, default
 # route), made on the CPU from the repository root with:
@@ -2105,16 +2170,6 @@ def moe_layer_check(torch, lm, cfg, rows, lp_host, dev) -> dict:
     return res
 
 
-def attn_fwd_flops(cfg, batch: int, seq: int) -> float:
-    """Causal attention matmul flops (Q K^T and P V) of one forward,
-    window-aware per layer: the JAX package's
-    ``configs/lm_family.py::_attn_fwd_flops``."""
-    full = 2 * 2 * batch * seq * seq * cfg.n_q * cfg.d_head / 2
-    local = 2 * 2 * batch * seq * min(cfg.window, seq) * cfg.n_q * cfg.d_head
-    return sum(local if cfg.pattern[i % len(cfg.pattern)] == "local"
-               else full for i in range(cfg.n_layers))
-
-
 def grads_of(torch, tree, lm, cfg, params, batch, dev):
     """(total, loss, aux, gradient leaves) of ``lm.loss_fn``."""
     leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
@@ -2277,6 +2332,8 @@ def train_full_width(torch, tree, lm, registry, TokenStream, adamw, cells,
     TRAIN_SEQ tokens, the same batch each step, lr 1e-3 after one warmup
     step.  ``adamw.update`` is wrapped to time it; its own peak is read on
     one more update, with zero gradients, after the timed steps."""
+    from repro_torch.configs import lm_family
+
     cfg = registry.get_config("gemma3-4b")
     n = cfg.param_count()
     state_gib = 16 * n / 2 ** 30
@@ -2309,7 +2366,8 @@ def train_full_width(torch, tree, lm, registry, TokenStream, adamw, cells,
         upd.append(time.perf_counter() - t)
         return out
 
-    flops = 6 * n * TRAIN_SEQ + 3 * attn_fwd_flops(cfg, 1, TRAIN_SEQ)
+    flops = 6 * n * TRAIN_SEQ + 3 * lm_family._attn_fwd_flops(cfg, 1,
+                                                                TRAIN_SEQ)
     bound_s = flops / BF16_FLOPS_PER_S
     rows = []
 
@@ -3008,6 +3066,462 @@ def gnn_phases(torch, run_phase, phase_launches, n15, e15, phi15,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the cell and dry-run layer
+# ---------------------------------------------------------------------------
+
+DRY11_CHILD = r"""
+import json, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import registry
+from repro_torch.launch import dryrun
+
+recs = []
+with dryrun.fake_group(1):
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    for arch, shape in json.loads(sys.argv[1]):
+        recs.append(dryrun.run_cell(registry.get_cell(arch, shape), mesh,
+                                    "1x1"))
+print("DRY11_RESULT " + json.dumps(recs), flush=True)
+"""
+
+
+def start_dryruns(tmp: str) -> dict:
+    """13a's and 13b's dry runs as child processes that never touch the card
+    (``CUDA_VISIBLE_DEVICES`` empty), started when the smoke starts, at
+    nice 19 (their pool workers inherit it): every cell on pod16x16
+    (``python -m repro_torch.launch.dryrun --all``), and CELL_RUNS on a
+    (1, 1) mesh.  Their output goes to files under ``tmp``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    out = {"tmp": tmp, "t0": time.perf_counter()}
+    for name, cmd in (
+            ("pod16x16", [sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--all", "--jobs", str(DRYRUN_JOBS), "--out",
+                          os.path.join(tmp, "pod16x16.json")]),
+            ("1x1", [sys.executable, "-c", DRY11_CHILD,
+                     json.dumps(CELL_RUNS)])):
+        log = open(os.path.join(tmp, f"{name}.log"), "w")
+        out[name] = (subprocess.Popen(cmd, env=env, cwd=str(ROOT), stdout=log,
+                                      stderr=subprocess.STDOUT,
+                                      preexec_fn=lambda: os.nice(19)), log)
+    return out
+
+
+def stop_dryruns(dry: dict) -> None:
+    """Kill whatever dry-run child is still running and close its log."""
+    for name in ("pod16x16", "1x1"):
+        p, log = dry[name]
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def wait_dryrun(dry: dict, name: str, timeout: float) -> str:
+    p, log = dry[name]
+    try:
+        p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+        with open(os.path.join(dry["tmp"], f"{name}.log")) as f:
+            done = [ln for ln in f.read().splitlines()
+                    if ln.startswith("[dryrun]")]
+        raise AssertionError(
+            f"13: the {name} dry run did not end within {timeout:.0f} s of "
+            f"phase 13, {time.perf_counter() - dry['t0']:.0f} s after it "
+            f"started (killed); its records so far:\n" + "\n".join(done))
+    log.flush()
+    with open(os.path.join(dry["tmp"], f"{name}.log")) as f:
+        text = f.read()
+    if p.returncode != 0:
+        raise AssertionError(f"13: the {name} dry run exited "
+                             f"{p.returncode}: {text[-3000:]}")
+    return text
+
+
+def dryrun_phase(run_phase, dry: dict) -> dict:
+    """13a: wait for the pod16x16 dry run; every record must be ok.  Prints
+    report.render's table, the bottleneck counts and the cells whose
+    per-device arg_bytes + temp_bytes fit one card's 80 GiB."""
+    from repro_torch.launch import report
+
+    run_phase("13a dry run pod16x16", lambda: wait_dryrun(
+        dry, "pod16x16", DRYRUN_WAIT_S))
+    with open(os.path.join(dry["tmp"], "pod16x16.json")) as f:
+        recs = json.load(f)
+    wall = time.perf_counter() - dry["t0"]
+    for line in report.render(recs, "Mesh pod16x16 (chip_smoke 13a)"
+                              ).splitlines():
+        say(f"[13a] {line}")
+    bad = [f"{r['arch']}×{r['shape']}: {r.get('error')}" for r in recs
+           if not r.get("ok")]
+    fits = [f"{r['arch']}×{r['shape']}" for r in recs if r.get("ok") and
+            r["arg_bytes"] + r["temp_bytes"] <= 80 * 2 ** 30]
+    out = dict(cells=len(recs), ok=len(recs) - len(bad), wall_s=wall,
+               trace_s={f"{r['arch']}×{r['shape']}": r.get("trace_s")
+                        for r in recs},
+               bottlenecks={b: sum(r.get("bottleneck") == b for r in recs)
+                            for b in ("compute", "memory", "collective")},
+               fit_80gib=fits, records=[{k: r.get(k) for k in (
+                   "arch", "shape", "kind", "ok", "trace_s", "arg_bytes",
+                   "out_bytes", "temp_bytes", "flops_per_device",
+                   "bytes_per_device", "collective_bytes_per_device",
+                   "t_compute", "t_memory", "t_collective", "bottleneck",
+                   "model_flops_ratio", "roofline_fraction")}
+                   for r in recs])
+    say(f"[13a] {out['ok']}/{out['cells']} ok, child wall {wall:.1f} s "
+        f"({DRYRUN_JOBS} workers); bottlenecks {out['bottlenecks']}; "
+        f"per-device arg + temp within 80 GiB: {fits}")
+    say(f"[13a] trace s by cell: {out['trace_s']}")
+    if bad or len(recs) != 40:
+        raise AssertionError(f"13a: {len(recs)} records, failed: {bad}")
+    return out
+
+
+def card_args(torch, tree, args, ranges: dict, dev, gen):
+    """Real inputs on the card in the abstract args' shapes and dtypes, from
+    ``gen``: the parameters (arg 0) normal times 0.02, other floats normal,
+    float masks and labels 0/1, bools at random, integer ids below
+    ``ranges[name]`` (a GNN's edge_index below its node count)."""
+    paths, leaves = tree.flatten_with_paths(args)
+    ranges = dict(ranges)
+    for p, t in zip(paths, leaves):
+        if p.endswith("/node_feat"):
+            ranges["edge_index"] = t.shape[0]
+    out = []
+    for p, t in zip(paths, leaves):
+        key, shape = p.split("/")[-1], tuple(t.shape)
+        if t.dtype == torch.bool:
+            x = torch.rand(shape, generator=gen, device=dev) < 0.8
+        elif t.dtype.is_floating_point:
+            if key.endswith("mask") or key == "label":
+                x = (torch.rand(shape, generator=gen, device=dev)
+                     < 0.8).to(t.dtype)
+            else:
+                x = (torch.randn(shape, generator=gen, device=dev)
+                     * (0.02 if p.startswith("0/") else 1.0)).to(t.dtype)
+        else:
+            x = torch.randint(0, ranges.get(key, 1), shape, generator=gen,
+                              device=dev, dtype=t.dtype)
+        out.append(x)
+    return tree.unflatten_like(args, out)
+
+
+def cell_runs(torch, run_phase, phase_launches, dry: dict, dev) -> dict:
+    """13b: CELL_RUNS built on a one-rank NCCL (1, 1) mesh and run once on
+    the card, each against the dry run's (1, 1) record of the same cell."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import tree
+    from repro_torch.configs import gnn_family as gnn_fam
+    from repro_torch.configs import registry
+    from repro_torch.models.common import use_mesh
+    from repro_torch.optim import adamw
+
+    text = wait_dryrun(dry, "1x1", 60)
+    line = [ln for ln in text.splitlines() if ln.startswith("DRY11_RESULT ")]
+    recs = {f"{r['arch']}×{r['shape']}": r
+            for r in json.loads(line[-1].split(" ", 1)[1])}
+    out = {}
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                             world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data",
+                                                                "model"))
+        for arch, shape in CELL_RUNS:
+            key = f"{arch}×{shape}"
+            rec = recs[key]
+            if not rec.get("ok"):
+                raise AssertionError(f"13b: the (1, 1) dry run of {key} "
+                                     f"failed: {rec.get('error')}")
+            cell = registry.get_cell(arch, shape)
+            fn, args, _ = cell.build(mesh)[:3]
+            if arch == "din":
+                cfg = registry.get_config("din")
+                ranges = {k: cfg.n_items for k in ("hist_items", "cand_item",
+                                                   "cand_items")}
+                ranges.update({k: cfg.n_cats for k in (
+                    "hist_cats", "cand_cat", "cand_cats")})
+            else:
+                ranges = {"labels": gnn_fam.SHAPES[shape].get("n_classes",
+                                                              2)}
+            gen = torch.Generator(device=dev).manual_seed(0)
+            real = card_args(torch, tree, args, ranges, dev, gen)
+            if cell.kind == "train":
+                real = (real[0], adamw.init_state(real[0]), real[2])
+            arg_bytes = sum(t.untyped_storage().nbytes() for t in {
+                t.untyped_storage().data_ptr(): t
+                for t in tree.leaves(real)}.values())
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+
+            def step():
+                with use_mesh(mesh):
+                    res = fn(*real)
+                torch.cuda.synchronize()
+                return res
+
+            t0 = time.perf_counter()
+            res = run_phase(f"13b cell {key}", step)
+            wall = time.perf_counter() - t0
+            temp = torch.cuda.max_memory_allocated() - mem0
+            ratio = max(temp, TEMP_FLOOR) / max(rec["temp_bytes"], TEMP_FLOOR)
+            peak = BF16_FLOPS_PER_S if any(
+                t.dtype == torch.bfloat16 for t in tree.leaves(real[0])) \
+                else FP32_FLOPS_PER_S
+            finite = all(bool(torch.isfinite(t).all()) for t in
+                         tree.leaves(res) if isinstance(t, torch.Tensor)
+                         and t.is_floating_point())
+            out[key] = dict(
+                kind=cell.kind, arg_bytes=arg_bytes,
+                dry_arg_bytes=rec["arg_bytes"], temp_bytes=temp,
+                dry_temp_bytes=rec["temp_bytes"], temp_ratio=ratio,
+                wall_s=wall, model_flops=cell.model_flops,
+                mfu=cell.model_flops / wall / peak, peak_flops=peak,
+                b4_launches=phase_launches[f"13b cell {key}"]["B4"],
+                finite=finite)
+            say(f"[13b] {key}: {out[key]}")
+            want_b4 = CELL_B4.get(shape, 0) if arch == "din" else 0
+            if arg_bytes != rec["arg_bytes"] or not finite or \
+                    not 1 / TEMP_FACTOR <= ratio <= TEMP_FACTOR or \
+                    out[key]["b4_launches"] != want_b4 or any(
+                        v for k, v in phase_launches[f"13b cell {key}"].items()
+                        if k != "B4"):
+                raise AssertionError(f"13b {key}: {out[key]} (B4 expected "
+                                     f"{want_b4})")
+            del real, res
+            torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+    return out
+
+
+RING_CHILD = r"""
+import json, sys, time
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+sys.path.insert(0, sys.argv[4])
+import chip_smoke as S
+
+rendezvous, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                        rank=rank, world_size=world)
+mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+out = S.ring_checks(torch, mesh, torch.device("cuda"), f"rank {rank}",
+                    full=False)
+print("RING_RESULT " + json.dumps(out), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def ring_graph(P: int, seed: int = 0) -> tuple:
+    """A seeded synthetic graph of P * RING_W nodes whose every (owner,
+    destination block) bucket holds RING_EB directed edges (full buckets),
+    with positions: (edge_index, positions)."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for o in range(P):
+        for b in range(P):
+            parts.append(np.stack([o * RING_W + rng.integers(0, RING_W,
+                                                             RING_EB),
+                                   b * RING_W + rng.integers(0, RING_W,
+                                                             RING_EB)], 1))
+    pos = rng.standard_normal((P * RING_W, 3)).astype(np.float32)
+    return np.concatenate(parts).astype(np.int32), pos
+
+
+def ring_checks(torch, mesh, dev, tag: str, full: bool = True) -> dict:
+    """13c on this rank of ``mesh`` (("data", "model"), P ranks): both ring
+    losses at the production per-device block against the plain losses on
+    the card, float32 payload; the forward-and-backward wall, the peak and
+    the collective calls; one AdamW step.  With ``full`` also the forward
+    alone (after an untimed one), the collectives counted by
+    ``hlo_analysis``, and EquiformerV2's bf16 payload timed with its loss
+    beside the float32 one."""
+    import dataclasses as dc
+
+    from repro_torch import tree
+    from repro_torch.configs import gnn_family as fam
+    from repro_torch.configs import registry
+    from repro_torch.configs.cells import value_and_grad
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.models.gnn import distributed as RD
+    from repro_torch.models.gnn import models as G
+    from repro_torch.optim import adamw
+
+    group, P, me = RD.ring_group(mesh)
+    ei, pos = ring_graph(P)
+    n = P * RING_W
+    bk = RD.bucket_edges_by_owner(n, ei, pos, P, pad_factor=1.0)
+    if bk["src_loc"].shape[2] != RING_EB or bk["overflow"] or \
+            not bk["edge_mask"].all():
+        raise AssertionError(f"13c: buckets {bk['src_loc'].shape}, overflow "
+                             f"{bk['overflow']}")
+    sh = fam.SHAPES["ogb_products"]
+    rng = np.random.default_rng(1)
+    nf = rng.standard_normal((n, sh["d_feat"])).astype(np.float32)
+    labels = rng.integers(0, sh["n_classes"], n).astype(np.int32)
+    lmask = (rng.random(n) < 0.5).astype(np.float32)
+    tgt = rng.standard_normal(n).astype(np.float32)
+    T = lambda a: torch.as_tensor(a, device=dev)
+    lo, hi = me * RING_W, (me + 1) * RING_W
+    slab = {k: T(bk[k][me:me + 1]) for k in ("src_loc", "dst_loc",
+                                            "edge_mask", "dst_pos")}
+    runs = {
+        "sage": (dc.replace(registry.get_config("graphsage-reddit"),
+                            d_in=sh["d_feat"], n_classes=sh["n_classes"]),
+                 G.sage_init, G.sage_loss, RD.sage_ring_loss,
+                 {"node_feat": T(nf), "edge_index": T(ei), "labels": T(labels),
+                  "label_mask": T(lmask)},
+                 {"node_feat": T(nf[lo:hi]), "labels": T(labels[lo:hi]),
+                  "label_mask": T(lmask[lo:hi]),
+                  **{k: slab[k] for k in ("src_loc", "dst_loc",
+                                          "edge_mask")}}),
+        "eqv2": (dc.replace(registry.get_config("equiformer-v2"),
+                            d_in=sh["d_feat"], ring_dtype="f32"),
+                 G.eqv2_init, G.eqv2_loss, RD.eqv2_ring_loss,
+                 {"node_feat": T(nf), "edge_index": T(ei), "positions": T(pos),
+                  "targets": T(tgt), "node_mask": T(np.ones(n, np.float32))},
+                 {"node_feat": T(nf[lo:hi]), "positions": T(pos[lo:hi]),
+                  "targets": T(tgt[lo:hi]),
+                  "node_mask": T(np.ones(RING_W, np.float32)), **slab}),
+    }
+    out = {"P": P, "W": RING_W, "Eb": RING_EB, "edges": int(len(ei))}
+    for name, (cfg, init, plain, ring, whole, local) in runs.items():
+        params = init(torch.Generator(device=dev).manual_seed(0), cfg)
+        lp, gp = value_and_grad(lambda p, b: plain(p, b, cfg), params, whole)
+        ring_loss = lambda p, b, cfg=cfg: ring(p, b, cfg, mesh)
+        fwd = None
+        if full:
+            for _ in range(2):          # the first call sets up the ring
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    ring_loss(params, local)
+                torch.cuda.synchronize()
+                fwd = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        c0 = D.COLLECTIVES
+        t0 = time.perf_counter()
+        lr, gr = value_and_grad(ring_loss, params, local)
+        torch.cuda.synchronize()
+        fwdbwd = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - mem0
+        calls = D.COLLECTIVES - c0
+        counted = hlo_analysis.analyze(lambda: value_and_grad(
+            ring_loss, params, local)) if full else {}
+        rel = [float((a - b).abs().max() / (b.abs().max() + 1e-6))
+               for a, b in zip(tree.leaves(gr), tree.leaves(gp))]
+        C = getattr(cfg, "d_hidden", 0)
+        x_loc = RING_W * (cfg.n_sph * C if name == "eqv2" else max(
+            sh["d_feat"], C)) * 4
+        block = x_loc + RING_W * (cfg.n_heads if name == "eqv2" else 1) * 4
+        r = dict(loss=float(lr), plain_loss=float(lp),
+                 loss_rel_err=abs(float(lr) - float(lp)) / abs(float(lp)),
+                 grad_rel_err_max=max(rel), fwd_s=fwd, fwdbwd_s=fwdbwd,
+                 peak_bytes=peak, x_loc_plus_block_bytes=x_loc + block,
+                 collective_calls=calls,
+                 collective_counts=counted.get("collective_counts"),
+                 collective_bytes=counted.get("collective_bytes"),
+                 flops=counted.get("flops"))
+        if full and name == "eqv2":
+            cfg16 = dc.replace(cfg, ring_dtype="bf16")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            l16, _ = value_and_grad(lambda p, b: ring(p, b, cfg16, mesh),
+                                    params, local)
+            torch.cuda.synchronize()
+            r.update(bf16_fwdbwd_s=time.perf_counter() - t0,
+                     bf16_loss=float(l16),
+                     bf16_loss_rel_diff=abs(float(l16) - float(lr))
+                     / abs(float(lr)))
+        state = adamw.init_state(params)
+        params, state, m = adamw.update(fam.OCFG, params, state, gr)
+        r["adamw_finite"] = bool(all(torch.isfinite(t).all()
+                                     for t in tree.leaves(params))
+                                 and torch.isfinite(m["grad_norm"]))
+        say(f"[13c] {tag} {name}: {r}")
+        if not (r["loss_rel_err"] <= RING_LOSS_RTOL
+                and r["grad_rel_err_max"] <= RING_GRAD_REL
+                and r["adamw_finite"]):
+            raise AssertionError(f"13c {tag} {name}: the ring differs from "
+                                 f"the plain loss: {r}")
+        out[name] = r
+        del params, state, gp, gr
+        torch.cuda.empty_cache()
+    return out
+
+
+def ring_phases(torch, run_phase, phase_launches, dev) -> dict:
+    """13c: both ring losses on a one-rank NCCL (1, 1) mesh in this
+    process, then on two gloo ranks sharing the card (child processes
+    importing only ``repro_torch`` and this script)."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    out = {}
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                             world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data",
+                                                                "model"))
+        tag = "13c ring one NCCL rank"
+        out["nccl_1"] = run_phase(tag, lambda: ring_checks(
+            torch, mesh, dev, "1 rank"))
+    finally:
+        tdist.destroy_process_group()
+    if any(phase_launches[tag].values()):
+        raise AssertionError(f"13c: a kernel launched: {phase_launches[tag]}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ring_") as d:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RING_CHILD, os.path.join(d, "rendezvous"),
+             str(rank), "2", str(ROOT)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
+
+        def wait():
+            deadline = time.perf_counter() + 300
+            outs = []
+            try:
+                for p in procs:
+                    outs.append(p.communicate(
+                        timeout=max(1.0, deadline - time.perf_counter())))
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            return outs
+
+        try:
+            outs = run_phase("13c ring two gloo ranks", wait)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("13c: the two ring ranks did not finish "
+                                 "within 300 s (killed)")
+    for rank, (p, (so, se)) in enumerate(zip(procs, outs)):
+        line = [ln for ln in so.splitlines() if ln.startswith("RING_RESULT ")]
+        if p.returncode != 0 or not line:
+            raise AssertionError(f"13c: ring rank {rank} exited "
+                                 f"{p.returncode}: {so[-1500:]} {se[-3000:]}")
+        out[f"gloo_2_rank{rank}"] = json.loads(line[-1].split(" ", 1)[1])
+        say(f"[13c] two gloo ranks, rank {rank}: "
+            f"{out[f'gloo_2_rank{rank}']}")
+    return out
+
+
 def main(argv) -> int:
     import torch
     import torch.distributed as tdist
@@ -3074,6 +3588,11 @@ def main(argv) -> int:
     b3_tc = b3_build_check(torch, build, ak)
     b1b2 = b1b2_build_check(build)
     b4_build = b4_build_check(build)
+    # phase 13's dry runs trace on the host while phases 2-12 use the card
+    dry_tmp = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+    dry = start_dryruns(dry_tmp)
+    atexit.register(shutil.rmtree, dry_tmp, True)
+    atexit.register(stop_dryruns, dry)
 
     # -- phase 2: kernels against their plain versions -----------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3682,6 +4201,15 @@ def main(argv) -> int:
     gnn = gnn_phases(torch, run_phase, phase_launches, n15, e15, phi15, dev)
     say(f"[12] {json.dumps(gnn)}")
 
+    # -- phase 13: the cell and dry-run layer --------------------------------
+    t13 = time.perf_counter()
+    cells13 = {"13a": dryrun_phase(run_phase, dry)}
+    cells13["13b"] = cell_runs(torch, run_phase, phase_launches, dry, dev)
+    cells13["13c"] = ring_phases(torch, run_phase, phase_launches, dev)
+    stop_dryruns(dry)
+    cells13["wall_s"] = time.perf_counter() - t13
+    say(f"[13] wall {cells13['wall_s']:.1f} s; {json.dumps(cells13)}")
+
     # -- kernels on the largest inputs the main path gave them ---------------
     kernels = []
     (sup, alive, rm, tris, n_rows), _ = p1.largest[None]
@@ -3834,7 +4362,9 @@ def main(argv) -> int:
     big = din["11b"]["b4_calls"][0]
     b4_paths = {"din serve_p99 (11a)": din["11a"]["b4_launches"],
                 "din serve_bulk (11b)": din["11b"]["b4_launches"],
-                "din retrieval_cand (11c)": din["11c"]["b4_launches"]}
+                "din retrieval_cand (11c)": din["11c"]["b4_launches"],
+                "din cells (13b)": sum(v["b4_launches"] for v in
+                                       cells13["13b"].values())}
     b4.update(
         launches=sum(b4_paths.values()), launches_by_path=b4_paths,
         max_abs_err=max(max(c["max_abs_err"] for c in din["11b"]["b4_calls"]),

@@ -3,6 +3,7 @@ vocab=262144; 5:1 local:global (window 1024), 128k context, tied embeddings.
 [hf:google/gemma-3-4b-pt]"""
 import torch
 
+from repro_torch.configs import lm_family
 from repro_torch.models.transformer import LMConfig
 
 CONFIG = LMConfig(
@@ -13,3 +14,4 @@ CONFIG = LMConfig(
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
     remat=True, microbatches=8,
 )
+CELLS = lm_family.make_cells("gemma3-4b", CONFIG, microbatches=8)

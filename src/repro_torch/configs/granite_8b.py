@@ -2,6 +2,7 @@
 vocab=49152; llama-arch code model.  [arXiv:2405.04324]"""
 import torch
 
+from repro_torch.configs import lm_family
 from repro_torch.models.transformer import LMConfig
 
 CONFIG = LMConfig(
@@ -11,3 +12,4 @@ CONFIG = LMConfig(
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
     remat=True, microbatches=8,
 )
+CELLS = lm_family.make_cells("granite-8b", CONFIG, microbatches=8)

@@ -4,6 +4,7 @@ vocab=163840, 64 experts top-6 + 2 shared (DeepSeek/Moonlight style).
 is modeled as MoE like the rest (DESIGN.md §7)."""
 import torch
 
+from repro_torch.configs import lm_family
 from repro_torch.models.transformer import LMConfig
 
 CONFIG = LMConfig(
@@ -14,3 +15,4 @@ CONFIG = LMConfig(
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
     remat=True, microbatches=8,
 )
+CELLS = lm_family.make_cells("moonshot-v1-16b-a3b", CONFIG, microbatches=8)

@@ -2,6 +2,7 @@
 vocab=32064, 16 experts top-2.  [hf:microsoft/Phi-3.5-MoE-instruct]"""
 import torch
 
+from repro_torch.configs import lm_family
 from repro_torch.models.transformer import LMConfig
 
 CONFIG = LMConfig(
@@ -12,3 +13,4 @@ CONFIG = LMConfig(
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
     remat=True, microbatches=8,
 )
+CELLS = lm_family.make_cells("phi3.5-moe-42b-a6.6b", CONFIG, microbatches=8)

@@ -2,6 +2,7 @@
 vocab=152064; GQA with QKV bias.  [hf:Qwen/Qwen2.5-14B]"""
 import torch
 
+from repro_torch.configs import lm_family
 from repro_torch.models.transformer import LMConfig
 
 CONFIG = LMConfig(
@@ -11,3 +12,4 @@ CONFIG = LMConfig(
     param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
     remat=True, microbatches=8,
 )
+CELLS = lm_family.make_cells("qwen2.5-14b", CONFIG, microbatches=8)

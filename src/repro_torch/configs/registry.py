@@ -1,8 +1,9 @@
-"""Architecture registry: ``--arch <id>`` -> config.
+"""Architecture registry: ``--arch <id>`` -> config module, config and
+cells.
 
 The names are the JAX package's ten archs, in its order: five LMs, four
-GNNs and DIN.  ``get_module``, ``get_cells``, ``get_cell`` and
-``all_cells`` wait for the cell layer."""
+GNNs and DIN.  Importing a config module builds its ``CELLS`` dict but no
+cell: a cell's ``build`` runs only when it is called."""
 from __future__ import annotations
 
 import importlib
@@ -27,7 +28,25 @@ GNN_ARCHS = ["meshgraphnet", "equiformer-v2", "graphsage-reddit", "gat-cora"]
 RECSYS_ARCHS = ["din"]
 
 
-def get_config(arch: str):
+def get_module(arch: str):
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; archs: {list(ARCHS)}")
-    return importlib.import_module(ARCHS[arch]).CONFIG
+    return importlib.import_module(ARCHS[arch])
+
+
+def get_config(arch: str):
+    return get_module(arch).CONFIG
+
+
+def get_cells(arch: str) -> dict:
+    return get_module(arch).CELLS
+
+
+def get_cell(arch: str, shape: str):
+    return get_cells(arch)[shape]
+
+
+def all_cells():
+    for arch in ARCHS:
+        for cell in get_cells(arch).values():
+            yield cell

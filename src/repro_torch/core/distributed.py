@@ -151,12 +151,13 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
-    """The ring exchange that replaces ``ppermute``: ``t`` goes to the next
-    rank of ``group`` and the previous rank's block comes back.  One
-    ``all_to_all_single`` whose only non-empty splits are the two
-    neighbours: gloo has no pair from a rank to itself, so a one-rank ring
-    of ``batch_isend_irecv`` could not run."""
+def ring_shift(t: torch.Tensor, group, step: int = 1) -> torch.Tensor:
+    """The ring exchange that replaces ``ppermute``: ``t`` goes to the rank
+    ``step`` places on in ``group`` (the next one by default; ``step=-1``:
+    the previous one) and the block of the rank ``step`` places back comes
+    back.  One ``all_to_all_single`` whose only non-empty splits are those
+    two ranks: gloo has no pair from a rank to itself, so a one-rank ring of
+    ``batch_isend_irecv`` could not run."""
     global COLLECTIVES
     COLLECTIVES += 1
     p = dist.get_world_size(group)
@@ -164,7 +165,7 @@ def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
     src = t.contiguous().reshape(-1)
     out = torch.empty_like(src)
     send, recv = [0] * p, [0] * p
-    send[(me + 1) % p] = recv[(me - 1) % p] = src.numel()
+    send[(me + step) % p] = recv[(me - step) % p] = src.numel()
     dist.all_to_all_single(out, src, recv, send, group=group)
     return out.reshape(t.shape)
 

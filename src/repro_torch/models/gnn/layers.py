@@ -6,7 +6,10 @@ nodes: ``jax.ops.segment_sum`` becomes ``index_add``, ``segment_max``
 becomes ``scatter_reduce(..., "amax", include_self=False)`` over a tensor
 of ``-inf``, so an empty segment gives ``-inf`` as the reference's does and
 is then replaced by 0.  Every op is out of place, so autograd reaches every
-input.  Padded edges carry a mask.
+input.  Padded edges carry a mask.  Under ``common.use_mesh`` with
+``DTensor`` inputs (the dry run) a segment sum scatters each rank's own
+edges into a pending sum over the mesh, and a segment max runs
+replicated.
 """
 
 from __future__ import annotations
@@ -23,14 +26,21 @@ def _mask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    return x.new_zeros((n,) + tuple(x.shape[1:])).index_add(0, seg.long(), x)
+    return cm.edge_sum(lambda x, seg: x.new_zeros(
+        (n,) + tuple(x.shape[1:])).index_add(0, seg.long(), x), x, seg)
 
 
 def segment_max(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """The max of each segment; ``-inf`` where a segment is empty."""
-    idx = _mask(seg.long(), x).expand(x.shape)
-    return x.new_full((n,) + tuple(x.shape[1:]), float("-inf")).scatter_reduce(
-        0, idx, x, "amax", include_self=False)
+    """The max of each segment; ``-inf`` where a segment is empty.  Under a
+    mesh it runs replicated (``DTensor`` has no sharding rule for
+    ``scatter_reduce``)."""
+    def local(x, seg):
+        idx = _mask(seg.long(), x).expand(x.shape)
+        return x.new_full((n,) + tuple(x.shape[1:]),
+                          float("-inf")).scatter_reduce(
+            0, idx, x, "amax", include_self=False)
+
+    return cm.replicated(local, x, seg)
 
 
 def segment_softmax(scores: torch.Tensor, seg_ids: torch.Tensor,
@@ -43,11 +53,11 @@ def segment_softmax(scores: torch.Tensor, seg_ids: torch.Tensor,
     smax = segment_max(scores, seg_ids, n_segments)
     smax = torch.where(torch.isfinite(smax), smax, 0.0)
     seg = seg_ids.long()
-    ex = torch.exp(scores - smax[seg])
+    ex = torch.exp(scores - cm.gather(smax, seg))
     if mask is not None:
         ex = torch.where(_mask(mask, ex), ex, 0.0)
     denom = segment_sum(ex, seg, n_segments)
-    return ex / torch.clamp(denom[seg], min=1e-9)
+    return ex / torch.clamp(cm.gather(denom, seg), min=1e-9)
 
 
 def aggregate(msgs: torch.Tensor, dst: torch.Tensor, n_nodes: int,
@@ -96,7 +106,8 @@ def mlp_init(gen: torch.Generator, dims, dtype=torch.float32) -> list:
 
 def sage_layer(params, h, src, dst, n_nodes, edge_mask=None, agg="mean"):
     """GraphSAGE: h' = ReLU(W_self h + W_nbr agg_j h_j + b)."""
-    nbr = aggregate(h[src.long()], dst, n_nodes, agg=agg, mask=edge_mask)
+    nbr = aggregate(cm.gather(h, src.long()), dst, n_nodes, agg=agg,
+                    mask=edge_mask)
     return F.relu(h @ params["w_self"] + nbr @ params["w_nbr"] + params["b"])
 
 
@@ -106,12 +117,14 @@ def gat_layer(params, h, src, dst, n_nodes, n_heads, d_head, edge_mask=None,
     over each destination per head, the weighted sum of the sources)."""
     H, Dh = n_heads, d_head
     src, dst = src.long(), dst.long()
-    z = (h @ params["w"]).reshape(-1, H, Dh)                  # (N, H, Dh)
+    # node state replicated under a mesh (the edges carry the sharding)
+    z = cm.shard(h @ params["w"], cm.P()).reshape(-1, H, Dh)  # (N, H, Dh)
     a_src = torch.einsum("nhd,hd->nh", z, params["a_src"])
     a_dst = torch.einsum("nhd,hd->nh", z, params["a_dst"])
-    e = F.leaky_relu(a_src[src] + a_dst[dst], negative_slope)  # (E, H)
+    e = F.leaky_relu(cm.gather(a_src, src) + cm.gather(a_dst, dst),
+                     negative_slope)                           # (E, H)
     alpha = segment_softmax(e, dst, n_nodes, mask=edge_mask)  # (E, H)
-    msgs = z[src] * alpha[..., None]                          # (E, H, Dh)
+    msgs = cm.gather(z, src) * alpha[..., None]               # (E, H, Dh)
     out = aggregate(msgs.reshape(msgs.shape[0], -1), dst, n_nodes,
                     agg="sum", mask=edge_mask).reshape(-1, H, Dh)
     if final:

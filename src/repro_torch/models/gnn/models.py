@@ -10,8 +10,10 @@ directions for an undirected graph), ``edge_mask`` (E,) bool,
 and ``edge_feat`` (E, 4) for MeshGraphNet.
 
 The reference's sharding annotations (``shard(..., dp_spec(...))``,
-``_edge_spec``) are the identity without a mesh and are left out; the mesh
-layout waits for the cell layer (ROADMAP A14 item 4).  Its per-block
+``_edge_spec``) are kept: the identity without a mesh, a ``DTensor``
+redistribution under ``common.use_mesh`` (the dry run); under a mesh the
+node state of GAT and EquiformerV2's gate runs replicated, the edges carry
+the sharding, as the reference's node arrays replicate.  Its per-block
 ``jax.checkpoint`` is ``torch.utils.checkpoint`` (non-reentrant) under a
 gradient; EquiformerV2's ``lax.scan`` over edge chunks is a loop whose
 chunk outputs are concatenated, and its einsums are matmuls.  Parameters
@@ -26,7 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree
 from repro_torch.models import common as cm
+from repro_torch.models.common import P, dp_spec, mesh_axis_names, shard
 from repro_torch.models.gnn import layers as L
 from repro_torch.models.gnn.wigner import rotation_to_z, wigner_stack
 
@@ -81,18 +85,26 @@ def mgn_init(gen: torch.Generator, cfg: MeshGraphNetConfig) -> dict:
     return params
 
 
+def _edge_spec():
+    """Edge arrays (and MeshGraphNet's node state) over every mesh axis."""
+    ax = tuple(a for a in ("pod", "data", "model") if a in mesh_axis_names())
+    return P(ax if len(ax) > 1 else (ax[0] if ax else None), None)
+
+
 def _mgn_block(h, e, blk, src, dst, emask, cfg):
-    e = e + L.mlp(blk["edge_mlp"], torch.cat([e, h[src], h[dst]], dim=-1))
+    e = shard(e + L.mlp(blk["edge_mlp"], torch.cat(
+        [e, cm.gather(h, src), cm.gather(h, dst)], dim=-1)), _edge_spec())
     agg = L.aggregate(e, dst, h.shape[0], agg=cfg.aggregator, mask=emask)
-    h = h + L.mlp(blk["node_mlp"], torch.cat([h, agg], dim=-1))
+    h = shard(h + L.mlp(blk["node_mlp"], torch.cat([h, agg], dim=-1)),
+              _edge_spec())
     return h, e
 
 
 def mgn_forward(params, batch, cfg: MeshGraphNetConfig) -> torch.Tensor:
     src, dst = _edges(batch)
     emask = batch.get("edge_mask")
-    h = L.mlp(params["node_enc"], batch["node_feat"])
-    e = L.mlp(params["edge_enc"], batch["edge_feat"])
+    h = shard(L.mlp(params["node_enc"], batch["node_feat"]), _edge_spec())
+    e = shard(L.mlp(params["edge_enc"], batch["edge_feat"]), _edge_spec())
     for blk in params["blocks"]:
         h, e = _remat(_mgn_block, h, e, blk, src, dst, emask, cfg)
     return L.mlp(params["decoder"], h)
@@ -138,6 +150,7 @@ def sage_forward(params, batch, cfg: GraphSAGEConfig) -> torch.Tensor:
     for lp in params["layers"]:
         h = L.sage_layer(lp, h, src, dst, h.shape[0], batch.get("edge_mask"),
                          agg=cfg.aggregator)
+        h = shard(h, dp_spec(None))
     return h @ params["head"]
 
 
@@ -183,6 +196,7 @@ def gat_forward(params, batch, cfg: GATConfig) -> torch.Tensor:
         heads, dh, final = _gat_layer_dims(cfg, i)
         h = L.gat_layer(lp, h, src, dst, h.shape[0], heads, dh,
                         batch.get("edge_mask"), final=final)
+        h = shard(h, dp_spec(None))
     return h
 
 
@@ -207,7 +221,7 @@ class EquiformerV2Config:
     d_out: int = 1           # graph/node scalar output
     n_rbf: int = 16
     edge_chunks: int = 1     # edge chunks a block (memory control)
-    ring_dtype: str = "f32"  # the ring path's payload (waits for the ring)
+    ring_dtype: str = "f32"  # the ring's payload: "f32" or "bf16"
 
     @property
     def n_sph(self) -> int:
@@ -283,7 +297,18 @@ def _rbf(dist, n_rbf, cutoff=5.0):
 
 def _edge_messages(x, blk, src, D, rbf, cfg):
     """Every edge's message (E, S, C) and attention logits (E, heads), in
-    ``cfg.edge_chunks`` chunks of edges, one after another."""
+    ``cfg.edge_chunks`` chunks of edges, one after another.  Under a mesh
+    each rank runs its own edges, in chunks of them (``cm.rowwise``; the
+    node state and the block's weights replicated)."""
+    leaves = tree.leaves(blk)
+    return cm.rowwise(
+        lambda x, src, D, rbf, *w: _edge_messages_local(
+            x, tree.unflatten_like(blk, w), src, D, rbf, cfg),
+        x, src, D, rbf, *leaves, n_out=2,
+        replicated=(0, *range(4, 4 + len(leaves))))
+
+
+def _edge_messages_local(x, blk, src, D, rbf, cfg):
     E = src.shape[0]
     k = max(cfg.edge_chunks, 1)
     if E % k:
@@ -313,15 +338,31 @@ def _eqv2_block(x, blk, src, dst, D, rbf, mask, cfg):
     alpha = L.segment_softmax(logit, dst, n, mask=mask)      # (E, heads)
     hd = C // cfg.n_heads
     msg_h = msg.reshape(E, S, cfg.n_heads, hd) * alpha[:, None, :, None]
-    agg = L.aggregate(msg_h.reshape(E, -1), dst, n, agg="sum",
-                      mask=mask).reshape(n, S, C)
-    # gated nonlinearity: the scalars gate the l > 0 channels
-    gates = torch.sigmoid(
-        L.mlp(blk["gate_mlp"], agg[:, 0]).reshape(n, cfg.l_max, C))
+    agg = L.aggregate(msg_h.reshape(E, -1), dst, n, agg="sum", mask=mask)
+    # node state replicated under a mesh (the edges carry the sharding)
+    gate = blk["gate_mlp"]
+    return x + cm.replicated(
+        lambda agg, *w: _eqv2_gate(agg.reshape(n, S, C),
+                                   tree.unflatten_like(gate, w), cfg),
+        agg, *tree.leaves(gate))
+
+
+def _eqv2_gate(agg, gate_mlp, cfg):
+    """The gated nonlinearity: the scalars gate the l > 0 channels."""
+    n, _, C = agg.shape
+    gates = torch.sigmoid(L.mlp(gate_mlp, agg[:, 0]).reshape(n, cfg.l_max, C))
     gated = [F.silu(agg[:, 0:1])]
     for l in range(1, cfg.l_max + 1):
         gated.append(agg[:, l * l:(l + 1) * (l + 1)] * gates[:, None, l - 1])
-    return x + torch.cat(gated, dim=1)
+    return torch.cat(gated, dim=1)
+
+
+def _geometry(d_vec, cfg):
+    """Each edge's radial basis (E, n_rbf) and rotation into its frame
+    (E, S, S)."""
+    dist = torch.linalg.norm(d_vec, dim=-1) + 1e-9
+    return (_rbf(dist, cfg.n_rbf),
+            wigner_stack(rotation_to_z(d_vec), cfg.l_max))
 
 
 def eqv2_forward(params, batch, cfg: EquiformerV2Config) -> torch.Tensor:
@@ -330,10 +371,8 @@ def eqv2_forward(params, batch, cfg: EquiformerV2Config) -> torch.Tensor:
     h0 = batch["node_feat"] @ params["embed"]
     n, S, C, E = h0.shape[0], cfg.n_sph, cfg.d_hidden, src.shape[0]
     x = torch.cat([h0[:, None], h0.new_zeros((n, S - 1, C))], dim=1)
-    d_vec = pos[dst] - pos[src]
-    dist = torch.linalg.norm(d_vec, dim=-1) + 1e-9
-    rbf = _rbf(dist, cfg.n_rbf)
-    D = wigner_stack(rotation_to_z(d_vec), cfg.l_max)         # (E, S, S)
+    rbf, D = cm.rowwise(lambda dv: _geometry(dv, cfg), cm.gather(pos, dst)
+                        - cm.gather(pos, src), n_out=2)
     mask = batch.get("edge_mask")
     if mask is None:
         mask = torch.ones(E, dtype=torch.bool, device=src.device)

@@ -3,9 +3,10 @@ port of the JAX package's ``models/gnn/wigner.py``).
 
 Ivanic & Ruedenberg recursion ("Rotation Matrices for Real Spherical
 Harmonics", J. Phys. Chem. 1996, and the 1998 erratum): D^l is built from
-D^{l-1} and the l = 1 block, entry by entry, with static Python loops over
-(l, m, n), each entry a tensor over a batch of rotations (one per graph
-edge).  The same recursion, in the same order, in float32.
+D^{l-1} and the l = 1 block.  Each entry is the reference's sum of
+products, in its order, in float32; the entries of a degree are computed
+together on gathered operands (one tensor over a batch of rotations, one
+per graph edge), where the reference loops over them.
 
 Convention: the real harmonics of degree l are ordered m = -l..l; the l = 1
 block is the 3x3 rotation conjugated by the (y, z, x) axis permutation.
@@ -16,8 +17,10 @@ each edge's frame, mixed there by SO(2) convolutions and rotated back.
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 
@@ -39,25 +42,6 @@ def _uvw(l: int, m: int, n: int):
     return u, v, w
 
 
-def _get(M, l, a, b):
-    """Entry M^l_{a,b} of a batched (..., 2l+1, 2l+1) block; 0 out of
-    range."""
-    if abs(a) > l or abs(b) > l:
-        return 0.0
-    return M[..., a + l, b + l]
-
-
-def _P(i, l, a, b, r, Mprev):
-    """Helper P_i(l; a, b) of the recursion; r is the l = 1 block."""
-    if b == -l:
-        return (_get(r, 1, i, 1) * _get(Mprev, l - 1, a, -l + 1)
-                + _get(r, 1, i, -1) * _get(Mprev, l - 1, a, l - 1))
-    if b == l:
-        return (_get(r, 1, i, 1) * _get(Mprev, l - 1, a, l - 1)
-                - _get(r, 1, i, -1) * _get(Mprev, l - 1, a, -l + 1))
-    return _get(r, 1, i, 0) * _get(Mprev, l - 1, a, b)
-
-
 _SH1 = [1, 2, 0]      # m = -1, 0, 1 -> y, z, x
 
 
@@ -67,55 +51,103 @@ def _rot_to_sh1(R: torch.Tensor) -> torch.Tensor:
     return R[..., _SH1, :][..., :, _SH1]
 
 
+def _terms(l: int) -> list:
+    """Degree l's recursion as five P terms an entry: for each entry (m,
+    n), m-major, the coefficients (u, v, w), then each term's (i, a,
+    weight): U's one, V's two and W's two (Table 2 of Ivanic-Ruedenberg).
+    A term whose coefficient is 0 is still listed; it adds an exact 0."""
+    rows = []
+    for m in range(-l, l + 1):
+        for n in range(-l, l + 1):
+            u, v, w = _uvw(l, m, n)
+            if m == 0:
+                vt = ((1, 1, 1.0), (-1, -1, 1.0))
+            elif m > 0:
+                vt = ((1, m - 1, math.sqrt(1 + _delta(m, 1))),
+                      (-1, -m + 1, -(1 - _delta(m, 1))))
+            else:
+                vt = ((1, m + 1, 1 - _delta(m, -1)),
+                      (-1, -m - 1, math.sqrt(1 + _delta(m, -1))))
+            wt = (((1, m + 1, 1.0), (-1, -m - 1, 1.0)) if m > 0 else
+                  ((1, m - 1, 1.0), (-1, -m + 1, -1.0)))
+            rows.append(((u, v, w), ((0, m, 1.0),) + vt + wt, n))
+    return rows
+
+
+def _p_cols(l: int, n: int):
+    """The recursion's helper P_i(l; a, n) (Ivanic-Ruedenberg) for column
+    n as two products r[i, j] * M^{l-1}[a, b]: (j, b, sign) each; a column
+    inside the block has one (the second's sign 0)."""
+    if n == -l:
+        return (1, -l + 1, 1.0), (-1, l - 1, 1.0)
+    if n == l:
+        return (1, l - 1, 1.0), (-1, -l + 1, -1.0)
+    return (0, n, 1.0), (0, n, 0.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_plan(l: int) -> tuple:
+    """Degree l's gather indices and weights as numpy arrays: r's and the
+    padded M^{l-1}'s flat indices (K, 5, 2), the second products' signs and
+    the V / W weights (K, 5), the (u, v, w) coefficients (K, 3)."""
+    pad = 2
+    rows = _terms(l)
+    ridx, midx, sgn, wts = [], [], [], []
+    for _, terms, n in rows:
+        (j1, b1, _), (j2, b2, s2) = _p_cols(l, n)
+        for i, a, wt in terms:
+            row = a + l - 1 + pad
+            ridx += [(i + 1) * 3 + j1 + 1, (i + 1) * 3 + j2 + 1]
+            midx += [row * (2 * l - 1) + b1 + l - 1,
+                     row * (2 * l - 1) + b2 + l - 1]
+            sgn.append(s2)
+            wts.append(wt)
+    K = len(rows)
+    return (np.array(ridx, np.int64), np.array(midx, np.int64),
+            np.array(sgn, np.float64).reshape(K, 5),
+            np.array(wts, np.float64).reshape(K, 5),
+            np.array([c for c, _, _ in rows], np.float64))
+
+
+def _degree(r: torch.Tensor, Mprev: torch.Tensor, l: int) -> torch.Tensor:
+    """D^l from D^{l-1} (``Mprev``, (..., 2l-1, 2l-1)) and the l = 1 block
+    ``r``, every entry at once: the loop version's products and sums, in
+    its order, on gathered operands (an absent term adds an exact zero)."""
+    batch = tuple(r.shape[:-2])
+    K, pad = (2 * l + 1) ** 2, 2
+    wm = 2 * l - 1 + 2 * pad                 # Mprev rows padded by 2 a side
+    Mp = torch.nn.functional.pad(Mprev, (0, 0, pad, pad)).reshape(
+        batch + (wm * (2 * l - 1),))
+    rf = r.reshape(batch + (9,))
+    ridx, midx, sgn, wts, coef = _gather_plan(l)
+    dev, dt = r.device, r.dtype
+    ridx = torch.as_tensor(ridx, device=dev)
+    midx = torch.as_tensor(midx, device=dev)
+    sgn = torch.as_tensor(sgn, dtype=dt, device=dev)
+    wts = torch.as_tensor(wts, dtype=dt, device=dev)
+    coef = torch.as_tensor(coef, dtype=dt, device=dev)
+    prod = (torch.index_select(rf, -1, ridx) * torch.index_select(
+        Mp, -1, midx)).reshape(batch + (K, 5, 2))
+    P = prod[..., 0] + sgn * prod[..., 1]                    # (..., K, 5)
+    V = P[..., 1] * wts[:, 1] + P[..., 2] * wts[:, 2]
+    W = P[..., 3] + wts[:, 4] * P[..., 4]
+    val = coef[:, 0] * P[..., 0] + coef[:, 1] * V + coef[:, 2] * W
+    return val.reshape(batch + (2 * l + 1, 2 * l + 1))
+
+
 def wigner_blocks(R: torch.Tensor, l_max: int) -> list:
     """Per-degree rotation blocks ``[D^0, ..., D^{l_max}]`` of rotations R
-    (..., 3, 3): a list of (..., 2l+1, 2l+1)."""
+    (..., 3, 3): a list of (..., 2l+1, 2l+1).  Each degree's entries are
+    computed together (``_degree``): a few dozen ops a degree, where an op
+    an entry would be thousands."""
     batch = tuple(R.shape[:-2])
     blocks = [torch.ones(batch + (1, 1), dtype=R.dtype, device=R.device)]
     if l_max == 0:
         return blocks
     r = _rot_to_sh1(R)
     blocks.append(r)
-    Mprev = r
     for l in range(2, l_max + 1):
-        rows = []
-        for m in range(-l, l + 1):
-            cols = []
-            for n in range(-l, l + 1):
-                u, v, w = _uvw(l, m, n)
-                val = 0.0
-                if u != 0.0:
-                    val = val + u * _P(0, l, m, n, r, Mprev)
-                if v != 0.0:
-                    if m == 0:
-                        Vmn = (_P(1, l, 1, n, r, Mprev)
-                               + _P(-1, l, -1, n, r, Mprev))
-                    elif m > 0:
-                        Vmn = (_P(1, l, m - 1, n, r, Mprev)
-                               * math.sqrt(1 + _delta(m, 1))
-                               - _P(-1, l, -m + 1, n, r, Mprev)
-                               * (1 - _delta(m, 1)))
-                    else:
-                        Vmn = (_P(1, l, m + 1, n, r, Mprev)
-                               * (1 - _delta(m, -1))
-                               + _P(-1, l, -m - 1, n, r, Mprev)
-                               * math.sqrt(1 + _delta(m, -1)))
-                    val = val + v * Vmn
-                if w != 0.0:
-                    if m > 0:
-                        Wmn = (_P(1, l, m + 1, n, r, Mprev)
-                               + _P(-1, l, -m - 1, n, r, Mprev))
-                    else:
-                        Wmn = (_P(1, l, m - 1, n, r, Mprev)
-                               - _P(-1, l, -m + 1, n, r, Mprev))
-                    val = val + w * Wmn
-                if not isinstance(val, torch.Tensor):
-                    val = R.new_full(batch, val)
-                cols.append(val)
-            rows.append(torch.stack(cols, dim=-1))
-        M = torch.stack(rows, dim=-2)
-        blocks.append(M)
-        Mprev = M
+        blocks.append(_degree(r, blocks[-1], l))
     return blocks
 
 

@@ -21,10 +21,11 @@ rule on the device, never a retry after a failure.  B4 has no backward (nor
 has the reference's kernel), so under a gradient (``torch.
 is_grad_enabled()`` and a table that requires grad) the default is
 ``"take"`` and an explicit ``"bag"`` raises ``ValueError``; ``din_loss``
-takes ``"take"``.  ``param_specs`` and the row-sharded route over a mesh
-wait for the cell layer (ROADMAP A14 item 4): the port has no ambient mesh,
-so ``_lookup`` never takes ``embedding.sharded_lookup``, which is called on
-its own.
+takes ``"take"``.  ``param_specs`` puts the item table's rows over
+"model".  Under ``common.use_mesh`` with ``DTensor`` tables (the dry run)
+the take on a row-sharded table is ``DTensor``'s masked gather and sum,
+the reference's ``sharded_lookup``; ``_lookup`` never calls
+``embedding.sharded_lookup``, which is called on its own.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.models import common as cm
+from repro_torch.models.common import P, dp_spec, shard
 from repro_torch.models.gnn.layers import mlp, mlp_init
 
 KERNELS = ("bag", "take")
@@ -51,7 +53,7 @@ class DINConfig:
     attn_mlp: tuple = (80, 40)
     mlp: tuple = (200, 80)
     cand_chunks: int = 1024       # chunks of the retrieval scoring
-    sharded_tables: bool = True   # the mesh route (waits for the cell layer)
+    sharded_tables: bool = True   # the reference's field (see _lookup)
 
     def param_count(self) -> int:
         d = self.embed_dim
@@ -72,6 +74,16 @@ def din_init(gen: torch.Generator, cfg: DINConfig) -> dict:
         "cat_emb": cm.embed_init(gen, (cfg.n_cats, d)),
         "attn": mlp_init(gen, [4 * d, *cfg.attn_mlp, 1]),
         "head": mlp_init(gen, [3 * d, *cfg.mlp, 1]),
+    }
+
+
+def param_specs(cfg: DINConfig) -> dict:
+    """The item table's rows over "model"; the rest replicated."""
+    return {
+        "item_emb": P("model", None),
+        "cat_emb": P(None, None),       # tiny: replicate
+        "attn": [(P(None, None), P(None))] * 3,
+        "head": [(P(None, None), P(None))] * 3,
     }
 
 
@@ -103,8 +115,8 @@ def _lookup(params, cfg, item_ids, cat_ids, kernel: Optional[str] = None):
     if lookup_route(params, kernel) == "bag":
         return _bag(params["item_emb"], item_ids) + _bag(params["cat_emb"],
                                                          cat_ids)
-    return params["item_emb"][item_ids.long()] + \
-        params["cat_emb"][cat_ids.long()]
+    return cm.take(params["item_emb"], item_ids) + cm.take(
+        params["cat_emb"], cat_ids)
 
 
 def _target_attention(params, e_hist, hist_mask, e_cand):
@@ -132,6 +144,7 @@ def din_scores(params, batch, cfg: DINConfig,
                      kernel)
     e_cand = _lookup(params, cfg, batch["cand_item"], batch["cand_cat"],
                      kernel)
+    e_hist = shard(e_hist, dp_spec(None, None))
     user = _target_attention(params, e_hist,
                              _mask(batch, batch["hist_items"]), e_cand)
     z = torch.cat([user, e_cand, user * e_cand], dim=-1)
@@ -158,9 +171,12 @@ def din_retrieval(params, batch, cfg: DINConfig,
     if n % k:
         raise ValueError(f"candidate count n={n} must be divisible by "
                          f"cfg.cand_chunks={k}")
+    # under a mesh the candidates shard inside each chunk, not over chunks
+    chunk_spec = P(None, *dp_spec())
     scores = []
-    for ci, cc in zip(cand_items.reshape(k, n // k),
-                      cand_cats.reshape(k, n // k)):
+    chunks = [shard(shard(c, P(None)).reshape(k, n // k), chunk_spec)
+              for c in (cand_items, cand_cats)]
+    for ci, cc in zip(*chunks):
         e_c = _lookup(params, cfg, ci, cc, kernel)            # (nc, D)
         nc = e_c.shape[0]
         user = _target_attention(

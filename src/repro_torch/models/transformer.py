@@ -38,6 +38,19 @@ paths) and returns a KV cache and the last-token logits; ``decode_step``
 appends one token.  Unlike the reference, ``decode_step`` writes the new
 key and value into the cache in place (``index_copy_``), so a step does
 not copy the whole cache.
+
+Meshes: ``param_specs`` and ``cache_specs`` are the reference's specs of
+the stacked leaves (Megatron tensor parallelism over "model", the batch
+over the data axes).  The reference's ``shard`` annotations (the flat q /
+k / v heads, the residual, the logits, the FFN, the expert buffer) are the
+identity without a mesh; under ``common.use_mesh`` with ``DTensor`` inputs
+(the dry run) they redistribute.  There attention runs on each rank's
+(batch, head) block (``local_map``; heads over "model" when it divides the
+kv heads, else replicated first, and merged back on each rank), the token
+embedding of ``forward`` is ``common.take``'s per-block gather, decode
+writes a sharded cache by the reference's one-hot select, the MoE routing,
+dispatch and combine run replicated around the experts' matmuls (sharded
+over the experts), and ``init_cache`` makes each rank's shard.
 """
 
 from __future__ import annotations
@@ -55,6 +68,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
+from repro_torch.models.common import P, dp_spec, shard
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
@@ -183,6 +197,46 @@ def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
     return params
 
 
+def param_specs(cfg: LMConfig) -> dict:
+    """Specs mirroring ``init_params``' stacked leaves (Megatron tensor
+    parallelism over "model")."""
+    layers = {
+        "ln1": P(None, None),
+        "ln2": P(None, None),
+        "wq": P(None, None, "model"),
+        "wk": P(None, None, "model"),
+        "wv": P(None, None, "model"),
+        "wo": P(None, "model", None),
+    }
+    if cfg.qkv_bias:
+        layers |= {"bq": P(None, "model"), "bk": P(None, "model"),
+                   "bv": P(None, "model")}
+    if cfg.moe:
+        layers |= {
+            "router": P(None, None, None),
+            "we_gate": P(None, "model", None, None),
+            "we_up": P(None, "model", None, None),
+            "we_down": P(None, "model", None, None),
+        }
+        if cfg.n_shared_experts:
+            layers |= {
+                "ws_gate": P(None, None, "model"),
+                "ws_up": P(None, None, "model"),
+                "ws_down": P(None, "model", None),
+            }
+    else:
+        layers |= {
+            "w_gate": P(None, None, "model"),
+            "w_up": P(None, None, "model"),
+            "w_down": P(None, "model", None),
+        }
+    specs = {"embed": P("model", None), "final_norm": P(None),
+             "layers": layers}
+    if not cfg.tie_embed:
+        specs["lm_head"] = P(None, "model")
+    return specs
+
+
 def _layer(params: dict, i: int) -> dict:
     return {k: a[i] for k, a in params["layers"].items()}
 
@@ -213,7 +267,7 @@ def _attention_full(q, k, v, positions_q, positions_kv, window):
 
 
 def _decode_attention(q, ck, cv, pos, window):
-    """Grouped GQA einsum over the cache, no KV repeat.
+    """Grouped GQA attention over the cache as two matmuls, no KV repeat.
 
     q: (B, 1, Hq, D); ck/cv: (B, S, Hkv, D); pos: (B,) current position.
     """
@@ -221,15 +275,20 @@ def _decode_attention(q, ck, cv, pos, window):
     s, hkv = ck.shape[1], ck.shape[2]
     g = hq // hkv
     scale = 1.0 / math.sqrt(dh)
+    # under a mesh the query's heads are replicated: the cache's sequence
+    # carries the "model" sharding
+    q = shard(q, cm.batch_spec(b, None, None, None))
     qg = q.reshape(b, hkv, g, dh).float()
-    logits = torch.einsum("bhgd,bshd->bhgs", qg, ck.float()) * scale
+    # matmuls on permuted views of the cache (DTensor's einsum drops the
+    # sharded size-1 dims)
+    logits = torch.matmul(qg, ck.float().permute(0, 2, 3, 1)) * scale
     kvpos = torch.arange(s, dtype=torch.int32, device=q.device)
     valid = kvpos[None, :] <= pos[:, None]
     if window is not None:
         valid &= kvpos[None, :] > pos[:, None] - window
     logits = torch.where(valid[:, None, None], logits, -1e30)
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", p, cv.float())
+    out = torch.matmul(p, cv.float().permute(0, 2, 1, 3))
     return out.reshape(b, 1, hq, dh).to(q.dtype)
 
 
@@ -246,6 +305,37 @@ def _attention(q, k, v, positions_q, positions_kv, window, cfg):
                                       v.transpose(1, 2), causal=True,
                                       window=window)
         return o.transpose(1, 2)
+    if cm.is_dtensor(q):
+        return _sharded_attention(q, k, v, positions_q, positions_kv, window,
+                                  cfg)
+    return _plain_attention(q, k, v, positions_q, positions_kv, window, cfg)
+
+
+def _sharded_attention(q, k, v, positions_q, positions_kv, window, cfg):
+    """Attention on ``DTensor``s, on each rank's (batch, head) block
+    (``local_map``, the reference's per-shard attention): the batch over
+    the data axes, the heads over "model" when it divides the kv heads,
+    else replicated over it.  The positions are one row's (every row of a
+    training or prefill batch has the same).  Returns (B, S, Hq * D), the
+    heads merged on each rank, so the backward splits no sharded dim."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    model = cm.mesh_axis_size("model")
+    heads = "model" if cfg.n_kv % model == 0 else None
+    pl = cm.placements(mesh, cm.batch_spec(q.shape[0], None, heads, None))
+    flat = cm.placements(mesh, cm.batch_spec(q.shape[0], None, heads))
+    pq, pk = positions_q[:1], positions_kv[:1]
+
+    def local(q, k, v):
+        o = _plain_attention(q, k, v, pq, pk, window, cfg)
+        return o.reshape(o.shape[0], o.shape[1], -1)
+
+    return local_map(local, out_placements=flat, in_placements=(pl, pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def _plain_attention(q, k, v, positions_q, positions_kv, window, cfg):
     s = q.shape[1]
     if s > cfg.attn_chunk and s == k.shape[1]:
         if window is not None:
@@ -255,6 +345,15 @@ def _attention(q, k, v, positions_q, positions_kv, window, cfg):
                                      q_chunk=cfg.attn_chunk,
                                      k_chunk=cfg.attn_chunk)
     return _attention_full(q, k, v, positions_q, positions_kv, window)
+
+
+def _heads(t, b, s, n, dh):
+    """(B, S, n * dh) -> (B, S, n, dh).  Under a mesh the heads stay over
+    "model" only when it divides n; else they are replicated first (a
+    sharded dim is not split across heads)."""
+    if n % cm.mesh_axis_size("model"):
+        t = shard(t, cm.batch_spec(b, None, None))
+    return t.reshape(b, s, n, dh)
 
 
 def _attn_block(x, lp, kind, positions, cfg, cache=None, cache_pos=None):
@@ -268,9 +367,13 @@ def _attn_block(x, lp, kind, positions, cfg, cache=None, cache_pos=None):
     v = h @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = q.reshape(b, s, cfg.n_q, dh)
-    k = k.reshape(b, s, cfg.n_kv, dh)
-    v = v.reshape(b, s, cfg.n_kv, dh)
+    # the flat head dim over "model" (head counts need not divide it)
+    q = shard(q, dp_spec(None, "model"))
+    k = shard(k, dp_spec(None, "model"))
+    v = shard(v, dp_spec(None, "model"))
+    q = _heads(q, b, s, cfg.n_q, dh)
+    k = _heads(k, b, s, cfg.n_kv, dh)
+    v = _heads(v, b, s, cfg.n_kv, dh)
     theta = cfg.rope_theta_local if kind == "local" else cfg.rope_theta
     q = cm.apply_rope(q, positions, theta)
     k = cm.apply_rope(k, positions, theta)
@@ -280,8 +383,16 @@ def _attn_block(x, lp, kind, positions, cfg, cache=None, cache_pos=None):
         new_kv = (k, v)
     else:
         ck, cv = cache                      # (B, Smax, n_kv, dh)
-        ck.index_copy_(1, cache_pos, k.to(ck.dtype))
-        cv.index_copy_(1, cache_pos, v.to(cv.dtype))
+        if cm.is_dtensor(ck):
+            # a sharded cache: the reference's shard-local one-hot select
+            # along the (model-sharded) seq dim, written back in place
+            sel = (torch.arange(ck.shape[1], device=ck.device)
+                   == cache_pos)[None, :, None, None]
+            ck.copy_(torch.where(sel, k.to(ck.dtype), ck))
+            cv.copy_(torch.where(sel, v.to(cv.dtype), cv))
+        else:
+            ck.index_copy_(1, cache_pos, k.to(ck.dtype))
+            cv.index_copy_(1, cache_pos, v.to(cv.dtype))
         o = _decode_attention(q, ck, cv, positions[:, -1], window)
         new_kv = (ck, cv)
     o = o.reshape(b, s, cfg.n_q * dh)
@@ -294,7 +405,8 @@ def _attn_block(x, lp, kind, positions, cfg, cache=None, cache_pos=None):
 
 def _dense_ffn(x, lp, cfg):
     h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return cm.swiglu(h @ lp["w_gate"], h @ lp["w_up"]) @ lp["w_down"]
+    g = shard(h @ lp["w_gate"], dp_spec(None, "model"))
+    return cm.swiglu(g, h @ lp["w_up"]) @ lp["w_down"]
 
 
 @dataclasses.dataclass
@@ -334,6 +446,21 @@ def moe_route(xt: torch.Tensor, router: torch.Tensor,
     return Routing(probs, topw, tope, slot, keep, seen[:, -1], C)
 
 
+def _route(xt, router, cfg) -> Routing:
+    """``moe_route``; on ``DTensor``s it runs replicated (its top-k, ranks
+    and gathers have no ``DTensor`` rule on the card's torch)."""
+    if not cm.is_dtensor(xt):
+        return moe_route(xt, router, cfg)
+    capacity = max(1, int(cfg.capacity_factor * xt.shape[0] * cfg.top_k
+                          / cfg.n_experts))
+
+    def local(xt, router):
+        r = moe_route(xt, router, cfg)
+        return r.probs, r.topw, r.tope, r.slot, r.keep, r.load
+
+    return Routing(*cm.replicated(local, xt, router), capacity)
+
+
 def _moe_ffn(x, lp, cfg):
     """Top-k capacity dispatch into an (E, C, d) buffer, the experts as
     batched matmuls over E, shared experts on the normed rows.  Returns
@@ -353,16 +480,22 @@ def _moe_ffn(x, lp, cfg):
     T = b * s
     xt = h.reshape(T, d)
     E, K = cfg.n_experts, cfg.top_k
-    r = moe_route(xt, lp["router"], cfg)
+    r = _route(xt, lp["router"], cfg)
     C = r.capacity
     ft = torch.arange(T * K, device=x.device) // K
-    buf = xt.new_zeros((E * C + 1, d)).index_copy_(0, r.slot, xt[ft])
-    xe = buf[:E * C].view(E, C, d)
-    g = torch.bmm(xe, lp["we_gate"])
-    u = torch.bmm(xe, lp["we_up"])
-    y = torch.bmm(cm.swiglu(g, u), lp["we_down"]).reshape(E * C, d)
-    y = torch.cat([y, y.new_zeros((1, d))])
-    contrib = (y[r.slot] * r.topw.reshape(-1, 1).to(y.dtype)).view(T, K, d)
+    # the dispatch runs replicated under a mesh (the buffer is then
+    # sharded over the experts)
+    buf = cm.replicated(lambda xt, slot, ft: xt.new_zeros(
+        (E * C + 1, d)).index_copy_(0, slot, xt[ft]), xt, r.slot, ft)
+    expert = P("model", None, None)
+    xe = shard(buf[:E * C].view(E, C, d), expert)
+    g = shard(torch.bmm(xe, lp["we_gate"]), expert)
+    u = shard(torch.bmm(xe, lp["we_up"]), expert)
+    y = shard(torch.bmm(cm.swiglu(g, u), lp["we_down"]),
+              expert).reshape(E * C, d)
+    contrib = cm.replicated(lambda y, slot, topw: (
+        torch.cat([y, y.new_zeros((1, d))])[slot]
+        * topw.reshape(-1, 1).to(y.dtype)).view(T, K, d), y, r.slot, r.topw)
     out = contrib[:, 0]
     for k in range(1, K):
         out = out + contrib[:, k]
@@ -381,7 +514,12 @@ def _ffn(x, lp, cfg):
 def _logits(params, x, cfg):
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embed else params["lm_head"]
-    return x @ head.to(cfg.compute_dtype)
+    return shard(x @ head.to(cfg.compute_dtype), dp_spec(None, "model"))
+
+
+def _residual_spec(cfg):
+    return dp_spec("model", None) if cfg.seq_shard_activations \
+        else dp_spec(None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -403,9 +541,9 @@ def _unbound_layers(params: dict) -> list:
 
 def _layer_fwd(x, lp, kind, positions, cfg):
     a, _ = _attn_block(x, lp, kind, positions, cfg)
-    x = x + a
+    x = shard(x + a, _residual_spec(cfg))
     f, aux = _ffn(x, lp, cfg)
-    return x + f, aux
+    return shard(x + f, _residual_spec(cfg)), aux
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -437,7 +575,8 @@ def forward(params, tokens, cfg: LMConfig, positions=None, *, device=None):
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
-    x = params["embed"].to(cfg.compute_dtype)[tokens]
+    x = shard(cm.take(params["embed"].to(cfg.compute_dtype), tokens),
+              _residual_spec(cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(_unbound_layers(params)):
         x, aux_i = _apply_layer(x, lp, _kind(cfg, i), positions, cfg)
@@ -461,11 +600,32 @@ def loss_fn(params, batch: dict, cfg: LMConfig, *, device=None):
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
                device=None) -> dict:
+    """A zero cache on ``device``; under a mesh, ``DTensor``s placed by
+    ``cache_specs`` (each rank allocates its own shard)."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    kinds = {"k": (shape, cfg.compute_dtype), "v": (shape, cfg.compute_dtype),
+             "pos": ((batch,), torch.int32)}
+    mesh = cm.current_mesh()
+    if mesh is not None:
+        specs = cache_specs(cfg)
+        return {k: cm.sharded_zeros(sh, dt, dev, specs[k])
+                for k, (sh, dt) in kinds.items()}
+    return {k: torch.zeros(sh, dtype=dt, device=dev)
+            for k, (sh, dt) in kinds.items()}
+
+
+def cache_specs(cfg: LMConfig, long_context: bool = False) -> dict:
+    """Specs of ``init_cache``'s leaves: batch over the data axes and the
+    sequence over "model"; a long context (batch too small to shard) puts
+    the sequence over ("data", "model")."""
+    if long_context:
+        seq = ("data", "model")
+        return {"k": P(None, None, seq, None, None),
+                "v": P(None, None, seq, None, None), "pos": P()}
+    return {"k": P(None, ("pod", "data"), "model", None, None),
+            "v": P(None, ("pod", "data"), "model", None, None),
+            "pos": P(("pod", "data"))}
 
 
 @torch.no_grad()
@@ -482,15 +642,20 @@ def prefill(params, tokens, cfg: LMConfig, max_seq: Optional[int] = None, *,
                          f"(s={s}); the cache would truncate live tokens")
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    x = params["embed"].to(cfg.compute_dtype)[tokens]
+    x = shard(params["embed"].to(cfg.compute_dtype)[tokens],
+              _residual_spec(cfg))
     cache = init_cache(cfg, b, max_seq, device=tokens.device)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         a, (k, v) = _attn_block(x, lp, _kind(cfg, i), positions, cfg)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
-        x = x + a
-        x = x + _ffn(x, lp, cfg)[0]
+        if s == max_seq:        # the whole sequence (a sharded one too)
+            cache["k"][i].copy_(k)
+            cache["v"][i].copy_(v)
+        else:
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
+        x = shard(x + a, _residual_spec(cfg))
+        x = shard(x + _ffn(x, lp, cfg)[0], _residual_spec(cfg))
     cache["pos"].fill_(s)
     return cache, _logits(params, x[:, -1:], cfg)[:, 0]
 

@@ -17,8 +17,8 @@ the tests hold the values to a tolerance.  Every scalar (lr, the bias
 corrections, the clip scale) stays a tensor on the parameters' device: a
 step reads nothing back to the host.
 
-The ZeRO state specs (``zero_specs``) wait for the cell layer (ROADMAP
-A14).
+``zero_specs`` gives the ZeRO-1 specs of the state: each leaf's parameter
+spec with the data axes on its first free dim that they divide.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import math
 import torch
 
 from repro_torch import tree
+from repro_torch.models.common import P, is_dtensor, map_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,8 +116,13 @@ def update(cfg: AdamWConfig, params, state: dict, grads, decay_mask=None):
         tmp = torch.square(g32)
         v.mul_(cfg.b2).add_(tmp, alpha=1 - cfg.b2)
         # delta = (m / b1c) / (sqrt(v / b2c) + eps), in the two temporaries
-        denom = torch.div(v, b2c, out=g32).sqrt_().add_(cfg.eps)
-        delta = torch.div(m, b1c, out=tmp).div_(denom)
+        # (a DTensor leaf, under a mesh: in new ones, the same values)
+        if is_dtensor(g32):
+            denom = torch.div(v, b2c).sqrt_().add_(cfg.eps)
+            delta = torch.div(m, b1c).div_(denom)
+        else:
+            denom = torch.div(v, b2c, out=g32).sqrt_().add_(cfg.eps)
+            delta = torch.div(m, b1c, out=tmp).div_(denom)
         del g32, denom
         if decay:
             delta.add_(master, alpha=cfg.weight_decay)
@@ -125,3 +131,23 @@ def update(cfg: AdamWConfig, params, state: dict, grads, decay_mask=None):
         p.copy_(master)
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def zero_specs(param_specs, params_shape, data_axes=("pod", "data"),
+               data_size: int = 16):
+    """State specs: each parameter's spec with the data axes on its first
+    dim that no axis shards and ``data_size`` divides.  ``param_specs`` and
+    ``params_shape`` (tensors, meta or not) are trees like the
+    parameters."""
+    def one(spec, arr):
+        shape = tuple(arr.shape)
+        entries = list(spec) + [None] * (len(shape) - len(spec))
+        for i, (s, dim) in enumerate(zip(entries, shape)):
+            if s is None and dim % data_size == 0 and dim > 0:
+                entries[i] = (tuple(data_axes) if len(data_axes) > 1
+                              else data_axes[0])
+                break
+        return P(*entries)
+
+    st = map_specs(one, param_specs, params_shape)
+    return {"step": P(), "master": st, "m": st, "v": st}

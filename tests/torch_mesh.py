@@ -329,9 +329,169 @@ def suite_lookup(mesh, rank, p):
     return out
 
 
+def ring_shard(batch: dict, index: int, n_ranks: int) -> dict:
+    """Rank ``index``'s shard of a ring batch: its W node rows and its
+    owner slab (1, P, Eb[, 3]) of the buckets."""
+    out = {}
+    for k, v in batch.items():
+        if k in ("src_loc", "dst_loc", "edge_mask", "dst_pos"):
+            out[k] = v[index:index + 1]
+        else:
+            w = len(v) // n_ranks
+            out[k] = v[index * w:(index + 1) * w]
+    return out
+
+
+def suite_ring(mesh, rank, p):
+    """``models.gnn.distributed`` over a ("data", "model") mesh of the
+    same shape: ``ring_aggregate`` on a toy contribution, and the two ring
+    losses' values and gradients on this rank's shard; the ring's
+    collectives counted by ``launch.hlo_analysis`` over one forward."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import tree
+    from repro_torch.configs.cells import value_and_grad
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.models.gnn import distributed as RD
+
+    ring = init_device_mesh("cpu", tuple(mesh.shape),
+                            mesh_dim_names=("data", "model"))
+    group, n, me = RD.ring_group(ring)
+    toy = RD.ring_aggregate(
+        lambda b: {"num": torch.full((3,), float(100 * me + b)),
+                   "den": torch.full((2,), float(me))},
+        {"num": torch.zeros(3), "den": torch.zeros(2)}, group, n, me)
+    out = {"index": me, "toy": {k: v.numpy() for k, v in toy.items()}}
+    for name, fn in (("eqv2", RD.eqv2_ring_loss), ("sage", RD.sage_ring_loss)):
+        cfg, params, batch = p[name]
+        params = tree.map_leaves(torch.from_numpy, params)
+        local = {k: torch.from_numpy(v)
+                 for k, v in ring_shard(batch, me, n).items()}
+        loss, grads = value_and_grad(
+            lambda q, b: fn(q, b, cfg, ring), params, local)
+        out[name] = (float(loss),
+                     [g.numpy() for g in tree.leaves(grads)])
+    cfg, params, batch = p["sage"]
+    local = {k: torch.from_numpy(v)
+             for k, v in ring_shard(batch, me, n).items()}
+    with torch.no_grad():
+        out["analyze"] = hlo_analysis.analyze(
+            lambda: RD.sage_ring_loss(tree.map_leaves(torch.from_numpy,
+                                                      params),
+                                      local, cfg, ring))
+    return out
+
+
+def _full(x):
+    """A tree of (``D``)tensors as numpy arrays (a ``DTensor`` gathered
+    whole); other leaves as they are."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    if isinstance(x, torch.Tensor):
+        return x.detach().numpy()
+    if isinstance(x, dict):
+        return {k: _full(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_full(v) for v in x)
+    return x
+
+
+def gnn_cell(arch, cfg, batch):
+    """A GNN training cell of the reduced ``cfg`` whose batch has the
+    arrays of ``batch`` (numpy), built as ``configs.gnn_family`` builds
+    its flat-graph cells (params replicated, edges over every mesh axis,
+    nodes replicated); EquiformerV2's tree batch (``node_feat`` of rank 3)
+    as its ``minibatch_lg`` cell (the trees over the data axes)."""
+    from functools import partial
+
+    import torch
+
+    from repro_torch.configs import cells as C
+    from repro_torch.configs import gnn_family as F
+    from repro_torch.models.gnn import models as G
+
+    init, loss = {"meshgraphnet": (G.mgn_init, G.mgn_loss),
+                  "equiformer-v2": (G.eqv2_init, G.eqv2_loss),
+                  "graphsage-reddit": (G.sage_init, G.sage_loss),
+                  "gat-cora": (G.gat_init, G.gat_loss)}[arch]
+    abs_b = {k: C.sds(v.shape, torch.from_numpy(v).dtype)
+             for k, v in batch.items()}
+    if batch["node_feat"].ndim == 3:
+        loss = F.eqv2_tree_loss
+
+        def specs(mesh):
+            return C.shardings(mesh, {k: C.dp(mesh, *([None] * (v.ndim - 1)))
+                                      for k, v in batch.items()})
+    else:
+        specs = partial(F._batch_specs, batch=abs_b)
+    return F._train_cell(arch, "reduced", cfg,
+                         lambda p, b: loss(p, b, cfg=cfg),
+                         lambda: init(torch.Generator(), cfg), 0.0,
+                         lambda mesh: (abs_b, specs(mesh)))
+
+
+def suite_cells(mesh, rank, p):
+    """The cells' mesh paths on real values: each case's cell built on a
+    ("data", "model") mesh of the same shape, its real args (numpy in the
+    payload) placed as ``DTensor``s by the cell's shardings, one step under
+    ``common.use_mesh``, its outputs gathered whole.  Cases: ``("lm",
+    cfg, shape, microbatches, args)``, ``("din", cfg, shape, args)``,
+    ``("gnn", arch, cfg, args)``, and ``("take", V, ids)``: ``common.take``
+    of a table whose rows are sharded over "model"."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import tree
+    from repro_torch.configs import lm_family, recsys_family
+    from repro_torch.launch.dryrun import _placed
+    from repro_torch.models import common as cm
+
+    m = init_device_mesh("cpu", tuple(mesh.shape),
+                         mesh_dim_names=("data", "model"))
+
+    def place(t, spec):
+        return distribute_tensor(t, m, cm.placements(m, spec))
+
+    out = {}
+    for name, case in p.items():
+        kind = case[0]
+        if kind == "take":
+            _, V, ids = case
+            table = torch.arange(V * 3, dtype=torch.float32).reshape(V, 3)
+            with cm.use_mesh(m):
+                got = cm.take(place(table, cm.P("model", None)),
+                              torch.from_numpy(ids))
+            out[name] = _full(got)
+            continue
+        if kind == "lm":
+            _, cfg, sh, mb, args = case
+            built = lm_family._build(cfg, sh, mb, m)
+        elif kind == "din":
+            _, cfg, sh, args = case
+            built = recsys_family._build(cfg, sh, m)
+        else:
+            _, arch, cfg, args = case
+            built = gnn_cell(arch, cfg, args[2]).build(m)
+        fn, _, in_sh = built[:3]
+        real = tree.map_leaves(lambda a: torch.from_numpy(np.array(a)), args)
+        with cm.use_mesh(m):
+            dargs = _placed(real, in_sh, m, place)
+            with implicit_replication():
+                res = fn(*dargs)
+        out[name] = _full(res)
+    return out
+
+
 SUITES = {"peels": suite_peels, "drivers": suite_drivers,
           "ladders": suite_ladders, "compress": suite_compress,
-          "lookup": suite_lookup}
+          "lookup": suite_lookup, "ring": suite_ring, "cells": suite_cells}
 
 
 def graphs():
