@@ -267,13 +267,29 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
          calls; on the NCCL rank also the forward alone, the collectives'
          counts and bytes (``hlo_analysis``) and EquiformerV2's bf16
          payload timed beside the float32 one; one AdamW step finite.
+14. the static-analysis pass and the kernels' shared memory, each through
+    ``run_phase``; neither launches a kernel:
+    14a. ``python -m repro_torch.analysis src/repro_torch --json -`` as a
+         child process must exit 0; the files checked and the allowlisted
+         findings per rule are printed;
+    14b. every kernel entry of the four ptxas reports: its static shared
+         memory (ptxas) plus its binding's dynamic estimate (``smem_bytes``
+         less ``STATIC_SMEM_BYTES``) at the largest input its paths gave it
+         (B1 at the truss path's E and at the largest E whose lane state
+         goes to shared memory, B2 at every n, each B3 instantiation at its
+         widest D, B4 at DIN's D) must fit the card's per-block opt-in limit
+         (torch's ``shared_memory_per_block_optin``, else
+         ``cudaDeviceGetAttribute`` through ctypes); each binding's Python
+         estimate must equal its source's ``<name>_smem_bytes`` export and
+         its static part ptxas's; ``build.SMEM_BUDGET_BYTES`` must equal the
+         limit.  A line per entry with the card's name and power limit.
 
 Six main paths: the truss path (phases 3-5d), the maintenance path (8a),
 the mesh path (9a), the LM path (phase 7, and 7b and 7c, each read on its
 own), the DIN path (11a, 11b and 11c, each read on its own) and the cell
 path (13b, each cell read on its own); 5e-5h, 8b-8e, 9b, 9c, 10, 11d, 11e,
-12, 13a and 13c read their own launches, each through ``run_phase``
-(phases 10, 11d, 12c and 13c must launch none).
+12, 13a, 13c and 14 read their own launches, each through ``run_phase``
+(phases 10, 11d, 12c, 13c and 14 must launch none).
 Every launch counter is set to 0 just before each and read just after it,
 and each kernel of the path must have launched (B1 and B2 on the truss
 path, B1 on the maintenance and the mesh paths, B3 on the LM path, B4 on
@@ -3522,6 +3538,159 @@ def ring_phases(torch, run_phase, phase_launches, dev) -> dict:
     return out
 
 
+# -- phase 14: the static-analysis pass and the kernels' shared memory ----
+
+def trusscheck_phase(run_phase) -> dict:
+    """Phase 14a: ``python -m repro_torch.analysis src/repro_torch --json -``
+    as a child process; it must exit 0.  Returns the files checked, the
+    errors and the allowlisted findings per rule."""
+    def run():
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "src/repro_torch",
+             "--json", "-"], cwd=ROOT, capture_output=True, text=True,
+            timeout=300, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+    proc = run_phase("14a trusscheck", run)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or "{" not in lines:
+        raise AssertionError(f"trusscheck exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    rep = json.loads("\n".join(lines[lines.index("{"):lines.index("}") + 1]))
+    allow: dict = {}
+    for f in rep["findings"]:
+        if f["allowlisted"]:
+            allow[f["rule_id"]] = allow.get(f["rule_id"], 0) + 1
+    out = dict(exit=proc.returncode, files_checked=rep["files_checked"],
+               errors=rep["errors"], allowlisted=allow)
+    say(f"[14a] trusscheck over src/repro_torch: exit {proc.returncode}, "
+        f"{rep['files_checked']} files, {rep['errors']} errors, "
+        f"allowlisted by rule {allow or 'none'}")
+    return out
+
+
+def smem_optin_limit(torch) -> tuple[int, str]:
+    """The card's shared memory per block with opt-in, in bytes, and where
+    it was read."""
+    props = torch.cuda.get_device_properties(0)
+    limit = getattr(props, "shared_memory_per_block_optin", None)
+    if limit:
+        return int(limit), "torch shared_memory_per_block_optin"
+    import ctypes
+    for cand in ("libcudart.so", "libcudart.so.12",
+                 "/usr/local/cuda/lib64/libcudart.so"):
+        try:
+            rt = ctypes.CDLL(cand)
+        except OSError:
+            continue
+        value = ctypes.c_int(0)
+        # cudaDevAttrMaxSharedMemoryPerBlockOptin
+        rc = rt.cudaDeviceGetAttribute(ctypes.byref(value), 97,
+                                       torch.cuda.current_device())
+        if rc == 0 and value.value:
+            return value.value, f"cudaDeviceGetAttribute ({cand})"
+    raise AssertionError("cannot read the card's opt-in shared memory limit")
+
+
+def smem_entries(torch, build, fk, tk, ak, bk, b1_E: int) -> list:
+    """Every kernel entry of the four ptxas reports with the shared memory
+    one block of it takes at the largest input its paths gave it: ptxas's
+    static bytes plus the binding's dynamic estimate (its ``smem_bytes``
+    less its ``STATIC_SMEM_BYTES``), beside the binding's Python estimate
+    and the source's C export of the same formula.  B1 is evaluated at the
+    truss path's largest-estimate E (``b1_E``) and at the largest E whose
+    lane state still goes to shared memory; B2 is the same at every n; B3's
+    instantiations each at their widest head dimension (bf16 D = 128 and
+    D = 256 the LM paths'); B4 the same at every shape (DIN's D)."""
+    b1_cap = fk.MAX_SMEM_BYTES // 8 * 32
+    rows = []
+    for src, mod in (("frontier_peel", fk), ("triangle_count", tk),
+                     ("flash_attention", ak), ("embedding_bag", bk)):
+        for entry, r in ptxas_kernels(build.report(src)).items():
+            cases = []      # (what, estimate, C export, covered)
+            name = entry
+            if src == "frontier_peel" and B1_TRACE_NAME in entry:
+                name = B1_TRACE_NAME
+                for what, E in ((f"E={b1_E} (truss path)", b1_E),
+                                (f"E={b1_cap} (largest in shared memory)",
+                                 b1_cap)):
+                    cases.append((what, fk.smem_bytes(E),
+                                  fk.c_smem_bytes(E), True))
+            elif src == "triangle_count" and B2_TRACE_NAME in entry:
+                name = B2_TRACE_NAME
+                cases.append(("every n (2,048 on the path)",
+                              tk.smem_bytes(), tk.c_smem_bytes(), True))
+            elif src == "flash_attention":
+                m = re.search(r"(tc|f32)_kernelILi(\d+)E", entry)
+                if m is not None:
+                    bf16 = m[1] == "tc"
+                    d = int(m[2]) if bf16 else 16 * int(m[2])
+                    dtype = torch.bfloat16 if bf16 else torch.float32
+                    name = f"{m[1]}_kernel<{m[2]}>"
+                    cases.append((f"D={d} {'bf16' if bf16 else 'float32'}",
+                                  ak.smem_bytes(d, dtype),
+                                  ak.c_smem_bytes(d, dtype), True))
+            elif src == "embedding_bag":
+                m = re.search(r"(embedding_bag_kernel|gather_probe)"
+                              r"I(f|13__nv_bfloat16)Li(\d+)E", entry)
+                if m is not None:
+                    dtype = "float32" if m[2] == "f" else "bf16"
+                    name = f"{m[1]}<{dtype}, {m[3]}>"
+                if m is not None and m[1] == "embedding_bag_kernel":
+                    cases.append(("every shape (DIN's D=18 included)",
+                                  bk.smem_bytes(), bk.c_smem_bytes(), True))
+                elif m is not None:     # the probe asks for none
+                    cases.append(("every shape (no estimate: none asked)",
+                                  0, 0, False))
+            if not cases:
+                raise AssertionError(f"{src}: kernel entry {entry} has no "
+                                     f"shared-memory estimate")
+            for what, est, c_est, covered in cases:
+                static = mod.STATIC_SMEM_BYTES if covered else 0
+                rows.append(dict(
+                    kernel=src, entry=name, symbol=entry, at=what,
+                    static=r["static_smem"], dynamic=est - static,
+                    estimate=est, c_export=c_est,
+                    declared_static=static))
+    return rows
+
+
+def smem_phase(torch, run_phase, build, fk, tk, ak, bk, b1_E: int,
+               smi: str) -> dict:
+    """Phase 14b: every kernel entry's ptxas static shared memory plus its
+    binding's dynamic estimate within the card's per-block opt-in limit,
+    each Python estimate equal to its C export and its static part to
+    ptxas's, and ``build.SMEM_BUDGET_BYTES`` equal to the card's limit."""
+    limit, source = smem_optin_limit(torch)
+    rows = run_phase("14b shared memory", lambda: smem_entries(
+        torch, build, fk, tk, ak, bk, b1_E))
+    say(f"[14b] the card's opt-in limit {limit} bytes ({source}); "
+        f"SMEM_BUDGET_BYTES {build.SMEM_BUDGET_BYTES}; {smi}")
+    bad = []
+    if build.SMEM_BUDGET_BYTES != limit:
+        bad.append(f"SMEM_BUDGET_BYTES {build.SMEM_BUDGET_BYTES} != the "
+                   f"card's {limit}")
+    for r in rows:
+        r["total"] = r["static"] + r["dynamic"]
+        r["headroom"] = limit - r["total"]
+        say(f"[14b] {r['kernel']} {r['entry']} at {r['at']}: static "
+            f"{r['static']} (ptxas) + dynamic {r['dynamic']} = {r['total']} "
+            f"of {limit} bytes, headroom {r['headroom']}; estimate "
+            f"{r['estimate']}, C export {r['c_export']}; {smi}")
+        if r["total"] > limit:
+            bad.append(f"{r['kernel']} {r['entry']} at {r['at']} needs "
+                       f"{r['total']} bytes")
+        if r["estimate"] != r["c_export"]:
+            bad.append(f"{r['kernel']} at {r['at']}: estimate "
+                       f"{r['estimate']} != C export {r['c_export']}")
+        if r["static"] != r["declared_static"]:
+            bad.append(f"{r['kernel']} {r['entry']}: ptxas static "
+                       f"{r['static']} != the binding's "
+                       f"{r['declared_static']}")
+    if bad:
+        raise AssertionError("phase 14b: " + "; ".join(bad))
+    return dict(limit=limit, limit_source=source, entries=rows)
+
+
 def main(argv) -> int:
     import torch
     import torch.distributed as tdist
@@ -4209,6 +4378,16 @@ def main(argv) -> int:
     stop_dryruns(dry)
     cells13["wall_s"] = time.perf_counter() - t13
     say(f"[13] wall {cells13['wall_s']:.1f} s; {json.dumps(cells13)}")
+
+    # -- phase 14: the static-analysis pass and shared memory ------------------
+    b1_E = max((E for _, E, *_ in p1.notes), key=fk.smem_bytes)
+    static14 = {"14a": trusscheck_phase(run_phase),
+                "14b": smem_phase(torch, run_phase, build, fk, tk, ak, bk,
+                                  b1_E, smi)}
+    if any(n for tag in ("14a trusscheck", "14b shared memory")
+           for n in phase_launches[tag].values()):
+        raise AssertionError("phase 14 launched a kernel")
+    say(f"[14] {json.dumps(static14)}")
 
     # -- kernels on the largest inputs the main path gave them ---------------
     kernels = []

@@ -90,7 +90,8 @@ from repro_torch.core.peel import (PendingPeel, local_threshold_peel,
 from repro_torch.core.store import GraphStore
 from repro_torch.core.support import (list_triangles,
                                       support_from_triangle_list)
-from repro_torch.device import release_cached_blocks, resolve_device
+from repro_torch.device import (host_array, release_cached_blocks,
+                                resolve_device)
 from repro_torch.kernels import check_kernel
 
 # The degradation ladder's floor for the per-round working-set budget:
@@ -1068,7 +1069,7 @@ def bottom_up_decompose(n: int, edges: np.ndarray, budget: int,
             _, _, removed = peel_threshold(sup, tris, np.ones(sub.m, bool),
                                            internal[h_ids], k - 2,
                                            device=dev)
-            rm_glob = h_ids[removed.cpu().numpy()]
+            rm_glob = h_ids[host_array(removed)]
             phi[rm_glob] = k
             remaining[rm_glob] = False
             k += 1

@@ -343,6 +343,12 @@ int embedding_bag_probe(const void* table, const void* idx, float* out,
                          static_cast<cudaStream_t>(stream));
 }
 
+// Shared memory of one block of embedding_bag_kernel, in bytes: the static
+// index stage (no dynamic shared memory; the probe uses none).
+int embedding_bag_smem_bytes(void) {
+  return static_cast<int>(sizeof(int32_t)) * WARPS * STAGE;
+}
+
 const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -730,7 +730,8 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
                         window, sm);
 }
 
-// Dynamic shared memory of one block, in bytes, for head dimension d.
+// Shared memory of one block, in bytes, for head dimension d: the dynamic
+// bytes a launch asks for (neither route declares a static array).
 int flash_attention_smem_bytes(int d, int bf16) {
   return bf16 ? tc_smem_bytes(tc_width(d))
               : smem_floats(d) * (int)sizeof(float);

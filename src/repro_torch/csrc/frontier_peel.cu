@@ -61,6 +61,14 @@ constexpr int kRows = 4;               // rows a thread takes at a time
 constexpr int kChunk = kRows * kThreads;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSmemBytes = 200 * 1024;  // a lane's state in shared memory
+constexpr int kStaticSmemBytes = kWarps * 4;  // warp_pos[kWarps], int32
+
+// Dynamic shared memory of one block at E edges a lane: the lane's packed
+// state (ceil(E / 32) uint2), when it fits kMaxSmemBytes, else none.
+inline int dynamic_smem_bytes(int E) {
+  const long long lane_bytes = (long long)((E + 31) / 32) * 8;
+  return lane_bytes <= kMaxSmemBytes ? (int)lane_bytes : 0;
+}
 
 // One atomicSub per distinct target edge of the warp; e < 0 means none.
 __device__ __forceinline__ void decrement(int32_t* sup, int e, int lane) {
@@ -233,9 +241,8 @@ int frontier_peel_live_round_launch(
     if (rc != cudaSuccess) return (int)rc;
     configured = true;
   }
-  const long long lane_bytes = (long long)((E + 31) / 32) * 8;
-  int use_smem = lane_bytes <= kMaxSmemBytes;
-  const int smem = use_smem ? (int)lane_bytes : 0;
+  const int smem = dynamic_smem_bytes(E);
+  int use_smem = smem > 0;
   int sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -256,6 +263,12 @@ int frontier_peel_live_round_launch(
       args, smem, static_cast<cudaStream_t>(stream));
   if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
+}
+
+// Shared memory of one block at E edges a lane, in bytes: the static
+// warp_pos array plus the dynamic bytes a launch at E asks for.
+int frontier_peel_smem_bytes(int E) {
+  return kStaticSmemBytes + dynamic_smem_bytes(E);
 }
 
 const char* cuda_error_string(int code) {

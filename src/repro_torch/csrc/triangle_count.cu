@@ -217,6 +217,10 @@ int triangle_count(const void* A, const void* At, void* S, int n,
   return (int)cudaGetLastError();
 }
 
+// Shared memory of one block, in bytes: the dynamic ring (no static
+// arrays), the same at every n.
+int triangle_count_smem_bytes(void) { return kSmemBytes; }
+
 const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

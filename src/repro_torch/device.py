@@ -6,12 +6,15 @@ mistaken for a device run.
 
 Every host loop over device tensors (one removal round per iteration) reads
 its loop-control flags through :func:`host_read`, the one place a round
-loop waits for the device; ``SYNCS`` counts those waits so a run can report
-them (``chip_smoke.py`` prints them per phase).
+loop waits for the device; a loop that needs a whole tensor on the host (the
+per-part seed path's removed mask) reads it through :func:`host_array`.
+``SYNCS`` counts those waits so a run can report them (``chip_smoke.py``
+prints them per phase).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 SYNCS = 0
@@ -33,6 +36,14 @@ def host_read(*values: torch.Tensor) -> list:
     global SYNCS
     SYNCS += 1
     return torch.stack([v.reshape(()).to(torch.int64) for v in values]).tolist()
+
+
+def host_array(value: torch.Tensor) -> np.ndarray:
+    """Copy one device tensor to a numpy array (one device synchronisation),
+    counted in ``SYNCS``."""
+    global SYNCS
+    SYNCS += 1
+    return value.cpu().numpy()
 
 
 def release_cached_blocks(exc: BaseException) -> None:

@@ -26,6 +26,13 @@ SOURCES = ("frontier_peel", "triangle_count", "flash_attention",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Shared memory one block may take on an H100 (sm_90) once a kernel opts in
+# (cudaFuncAttributeMaxDynamicSharedMemorySize): 227 KiB, static and dynamic
+# together.  Every binding compares its kernel's estimate against it before
+# a launch; chip_smoke.py checks it against the card's
+# sharedMemPerBlockOptin.
+SMEM_BUDGET_BYTES = 232_448
+
 _LIBS: dict = {}
 
 

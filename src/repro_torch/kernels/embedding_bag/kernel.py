@@ -35,10 +35,14 @@ from repro_torch.kernels import build
 LAUNCHES = 0
 DTYPES = (torch.float32, torch.bfloat16)
 MODES = ("sum", "mean")
-# as in csrc/embedding_bag.cu: indices a warp stages at a time, and row
-# loads a lane of the gather probe keeps in flight
+# as in csrc/embedding_bag.cu: indices a warp stages at a time, warps (bags)
+# a block, and row loads a lane of the gather probe keeps in flight
 STAGE = 128
+WARPS = 8
 UNROLL_PROBE = 16
+# the block's static index stage, stage[WARPS][STAGE] int32; no dynamic
+# shared memory
+STATIC_SMEM_BYTES = WARPS * STAGE * 4
 
 
 class Layout(NamedTuple):
@@ -78,8 +82,22 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.embedding_bag_smem_bytes.argtypes = []
+    lib.embedding_bag_smem_bytes.restype = ctypes.c_int
     _LIB = lib
     return lib
+
+
+def smem_bytes() -> int:
+    """Shared memory of one block of the bag kernel, in bytes, the same at
+    every shape: its static index stage.  Mirrors the source's
+    ``embedding_bag_smem_bytes``."""
+    return STATIC_SMEM_BYTES
+
+
+def c_smem_bytes() -> int:
+    """The source's ``embedding_bag_smem_bytes()`` (builds the library)."""
+    return _lib().embedding_bag_smem_bytes()
 
 
 def check_args(table: torch.Tensor, idx: torch.Tensor, mode: str) -> None:
@@ -119,6 +137,10 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *,
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
     if B == 0 or D == 0:
         return out
+    if smem_bytes() > build.SMEM_BUDGET_BYTES:
+        raise ValueError(f"a block needs {smem_bytes()} bytes of shared "
+                         f"memory, over the {build.SMEM_BUDGET_BYTES}-byte "
+                         f"budget")
     lib = _lib()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream

@@ -10,8 +10,9 @@ cores (wgmma, K / V staged by cp.async), float32 on the CUDA cores.
 :func:`flash_attention` launches the CUDA kernel on CUDA tensors and raises
 on anything else; ``ops.flash_attention`` chooses between it and the plain
 version.  ``LAUNCHES`` counts the kernel launches.  The TPU kernel's tile
-rules (``s % bq``, the VMEM budget) are layout and are not kept: any
-sequence length is taken.
+rule (``s % bq``) is layout and is not kept: any sequence length is taken.
+Its VMEM budget becomes :func:`smem_bytes` checked against
+``build.SMEM_BUDGET_BYTES``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,14 @@ from repro_torch.kernels import build
 LAUNCHES = 0
 MAX_D = 256                 # the accumulator's capacity (16 columns a group)
 DTYPES = (torch.float32, torch.bfloat16)
+# as in csrc/flash_attention.cu: the float32 route's query rows a block, key
+# rows a tile and P row stride (in floats); the bf16 route's query rows a
+# block, key rows a tile and K / V ring stages.  Neither declares a static
+# shared array.
+F32_BQ, F32_BK = 64, 64
+F32_P_STRIDE = F32_BK + 16
+TC_ROWS, TC_KEYS, TC_STAGES = 128, 64, 2
+STATIC_SMEM_BYTES = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -38,9 +47,31 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def tc_width(d: int) -> int:
+    """The bf16 instantiation (64, 128 or 256) that serves head dimension
+    ``d``."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
 def smem_bytes(d: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block of the kernel that serves head
-    dimension ``d`` in ``dtype`` (builds the library on first use)."""
+    """Shared memory of one block of the kernel that serves head dimension
+    ``d`` in ``dtype``, in bytes (all of it dynamic).  bf16: Q, then
+    ``TC_STAGES`` K and V tiles of the instantiation's width, and 1 KB to
+    align them to the swizzle's period; float32: Q and K with two padding
+    columns, V, and P at its padded stride.  Mirrors the source's
+    ``flash_attention_smem_bytes``."""
+    if dtype == torch.bfloat16:
+        dp = tc_width(d)
+        return (STATIC_SMEM_BYTES
+                + (TC_ROWS + 2 * TC_STAGES * TC_KEYS) * dp * 2 + 1024)
+    floats = (F32_BQ * (d + 2) + F32_BK * (d + 2) + F32_BK * d
+              + F32_BQ * F32_P_STRIDE)
+    return STATIC_SMEM_BYTES + 4 * floats
+
+
+def c_smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """The source's ``flash_attention_smem_bytes(d, bf16)`` (builds the
+    library on first use)."""
     return _lib().flash_attention_smem_bytes(d, int(dtype == torch.bfloat16))
 
 
@@ -111,6 +142,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"the kernel takes float32 or bf16, got {q.dtype}")
     b, hq, s, d = q.shape
     check_head_dim(d)
+    if smem_bytes(d, q.dtype) > build.SMEM_BUDGET_BYTES:
+        raise ValueError(f"a block needs {smem_bytes(d, q.dtype)} bytes of "
+                         f"shared memory at D={d} in {q.dtype}, over the "
+                         f"{build.SMEM_BUDGET_BYTES}-byte budget")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     q, k, v = _rows(q), _rows(k), _rows(v)

@@ -27,6 +27,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.frontier_peel import ref
 
 LAUNCHES = 0
+# as in csrc/frontier_peel.cu: a lane's packed state goes to shared memory
+# when it fits kMaxSmemBytes; warp_pos[kWarps] (32 int32) is the block's
+# static array
+MAX_SMEM_BYTES = 200 * 1024
+STATIC_SMEM_BYTES = 32 * 4
 _FN = None
 
 
@@ -40,8 +45,25 @@ def _fn():
             ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.frontier_peel_smem_bytes.argtypes = [ctypes.c_int]
+        lib.frontier_peel_smem_bytes.restype = ctypes.c_int
         _FN = (lib, fn)
     return _FN
+
+
+def smem_bytes(E: int) -> int:
+    """Shared memory of one block of the round at E edges a lane, in bytes:
+    the static ``warp_pos`` array plus the lane's packed state (ceil(E / 32)
+    pairs of words) when it fits ``MAX_SMEM_BYTES`` (a larger lane reads
+    its state from global memory).  Mirrors the source's
+    ``frontier_peel_smem_bytes``."""
+    lane = -(-E // 32) * 8
+    return STATIC_SMEM_BYTES + (lane if lane <= MAX_SMEM_BYTES else 0)
+
+
+def c_smem_bytes(E: int) -> int:
+    """The source's ``frontier_peel_smem_bytes(E)`` (builds the library)."""
+    return _fn()[0].frontier_peel_smem_bytes(E)
 
 
 def _check(sup, alive, rm, tris) -> None:
@@ -108,6 +130,10 @@ def fused_round_live(sup, alive, rm, tris, n_rows, tris_out, n_rows_out):
         raise ValueError("tris must be contiguous")
     B, E = sup.shape
     T = tris.shape[1]
+    if smem_bytes(E) > build.SMEM_BUDGET_BYTES:
+        raise ValueError(f"a block needs {smem_bytes(E)} bytes of shared "
+                         f"memory at E={E}, over the "
+                         f"{build.SMEM_BUDGET_BYTES}-byte budget")
     sup, alive, rm = (x.contiguous() for x in (sup, alive, rm))
     sup_out = torch.empty_like(sup)
     alive_out = torch.empty_like(sup)

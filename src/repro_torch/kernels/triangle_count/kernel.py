@@ -25,6 +25,8 @@ from repro_torch.kernels.triangle_count import ref
 
 LAUNCHES = 0
 TILE = 128                  # the kernel's output tile and k-slab
+STAGES = 3                  # k-slabs in flight in the cp.async ring
+STATIC_SMEM_BYTES = 0       # the ring is dynamic; no static arrays
 _FN = None
 
 
@@ -37,8 +39,23 @@ def _fn():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.triangle_count_smem_bytes.argtypes = []
+        lib.triangle_count_smem_bytes.restype = ctypes.c_int
         _FN = (lib, fn)
     return _FN
+
+
+def smem_bytes() -> int:
+    """Shared memory of one block, in bytes, the same at every n: ``STAGES``
+    k-slabs of both operands (TILE x TILE bytes each) and 1 KB to align the
+    ring to the swizzle's 1024-byte period.  Mirrors the source's
+    ``triangle_count_smem_bytes``."""
+    return STATIC_SMEM_BYTES + STAGES * 2 * TILE * TILE + 1024
+
+
+def c_smem_bytes() -> int:
+    """The source's ``triangle_count_smem_bytes()`` (builds the library)."""
+    return _fn()[0].triangle_count_smem_bytes()
 
 
 def triangle_count(A: torch.Tensor, *, symmetric: bool = False
@@ -58,6 +75,10 @@ def triangle_count(A: torch.Tensor, *, symmetric: bool = False
         return ref.support_dense(A)
     if A.device.type != "cuda":
         raise ValueError(f"no kernel for device {A.device}")
+    if smem_bytes() > build.SMEM_BUDGET_BYTES:
+        raise ValueError(f"a block needs {smem_bytes()} bytes of shared "
+                         f"memory, over the {build.SMEM_BUDGET_BYTES}-byte "
+                         f"budget")
     n = A.shape[0]
     n_pad = -(-n // TILE) * TILE
     if n_pad != n:

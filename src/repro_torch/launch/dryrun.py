@@ -164,8 +164,9 @@ def run_cell(cell, mesh, mesh_name: str) -> dict:
             out_st = _storages(out)
         t_trace = time.time()
         n_dev = mesh.size()
-        coll = {"bytes": counter.result()["collective_bytes"],
-                "counts": counter.result()["collective_counts"]}
+        counted = counter.result()
+        coll = {"bytes": counted["collective_bytes"],
+                "counts": counted["collective_counts"]}
         flops_dev = float(counter.flops)
         bytes_dev = float(counter.dot_bytes)
         comm_dev = float(sum(coll["bytes"].values()))
