@@ -51,6 +51,12 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    15 at phase 4's budget: stage 1 by ``partitioned_support`` on the host,
    the levels through B1; its phi must equal the in-memory one, with no
    retry.  After the truss path's counts are read:
+   5c. on the dense core whose S B2 computed (the whole er2048 graph):
+       ``ref.triangle_total(S)`` must equal the rows of the host triangle
+       list (``list_triangles_np``) and ``ref.edge_support(S, edges)`` at
+       the core's canonical edges ``edge_support_np``, both exactly (the
+       two host oracles run in a child process started after phase 1, at
+       nice 19 beside phases 2-5c, ``DENSE_ORACLE_CHILD``);
    5e. kill and resume: a child process (``sys.executable``, importing only
        ``repro_torch``) runs 5d's call with a journal in a temporary
        directory (``checkpoint_every=1``) and a ``kill`` fault rule at the
@@ -128,7 +134,13 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
        calls (``distributed.COLLECTIVES``) are printed and must be positive;
 6. phi of every graph of phases 3-5 (4b, 4c and 5d included) against
    digests of the JAX package's answer, and the paper's Figure-2 graph
-   against the port's serial oracle;
+   against the port's serial oracle; then the paper's Algorithm 1
+   (``serial.alg1_truss``) on the Figure-2 graph and on 5f's graph (R-MAT
+   scale 13), equal to the rmat13 digest and to ``alg2_truss``, with one
+   line of both host walls beside the in-memory ``truss_decompose`` wall on
+   the card for that graph (the paper's Table 3 in miniature; it gates
+   nothing); ``truss_from_phi`` at k_max on phase 3's graph equal, as a
+   set, to 8c's k_max-truss, and on rmat13 to ``kmax_truss`` on the card;
 7. LM serving: gemma3-4b at full width (34 layers, d_model 2560, vocab
    262,144, bf16, random weights from a generator seeded with 0, the flash
    kernel on) serves 8 requests of 2,048-token prompts and 32 greedy decode
@@ -283,13 +295,23 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
          estimate must equal its source's ``<name>_smem_bytes`` export and
          its static part ptxas's; ``build.SMEM_BUDGET_BYTES`` must equal the
          limit.  A line per entry with the card's name and power limit.
+15. the port's five examples (``examples/*_torch.py``) as child processes
+    on the card, all started together after the parent has freed its cache,
+    each with ``jax`` and ``repro`` blocked (``EXAMPLE_CHILD``), killed at
+    EXAMPLES_TIMEOUT_S: each must exit 0; ``quickstart_torch`` and
+    ``truss_analysis_torch`` must print exactly the reference examples'
+    lines (``QUICKSTART_LINES``, ``TRUSS_ANALYSIS_LINES``) and launch B1 in
+    their processes; ``serve_lm_torch`` 16 tokens of its first request;
+    ``train_lm_torch`` (``--steps TRAIN_EXAMPLE_STEPS``) and
+    ``train_gnn_truss_torch`` finite losses.  Each child's wall, its own
+    launches and the phase's total are printed.
 
 Six main paths: the truss path (phases 3-5d), the maintenance path (8a),
 the mesh path (9a), the LM path (phase 7, and 7b and 7c, each read on its
 own), the DIN path (11a, 11b and 11c, each read on its own) and the cell
 path (13b, each cell read on its own); 5e-5h, 8b-8e, 9b, 9c, 10, 11d, 11e,
-12, 13a, 13c and 14 read their own launches, each through ``run_phase``
-(phases 10, 11d, 12c, 13c and 14 must launch none).
+12, 13a, 13c, 14 and 15 read their own launches, each through ``run_phase``
+(phases 10, 11d, 12c, 13c, 14 and 15 must launch none in this process).
 Every launch counter is set to 0 just before each and read just after it,
 and each kernel of the path must have launched (B1 and B2 on the truss
 path, B1 on the maintenance and the mesh paths, B3 on the LM path, B4 on
@@ -608,6 +630,30 @@ DIGESTS = {
 FIG2 = ("ab ac ad ae bc bd be cd ce de dg dk dl ef eg fg gh gk gl fh fi fj "
         "hi hj ij ik")
 FIG2_CLASSES = {2: 1, 3: 9, 4: 6, 5: 10}
+
+# phase 15: what examples/quickstart.py and examples/truss_analysis.py
+# print (the JAX package's runs on the CPU; tests/test_torch_examples.py
+# holds those runs and the port's examples on the CPU to these lines)
+QUICKSTART_LINES = (
+    "k-classes of the Figure-2 graph:",
+    "  Phi_2: (i,k)",
+    "  Phi_3: (d,g) (d,k) (d,l) (e,f) (e,g) (f,g) (g,h) (g,k) (g,l)",
+    "  Phi_4: (f,h) (f,i) (f,j) (h,i) (h,j) (i,j)",
+    "  Phi_5: (a,b) (a,c) (a,d) (a,e) (b,c) (b,d) (b,e) (c,d) (c,e) (d,e)",
+    "  k_max = 5  (the 5-truss is the clique a-e)",
+    "bottom-up (budget=10 edges) and top-down agree. bottom-up used 9 "
+    "partition rounds, 42 scans.",
+)
+TRUSS_ANALYSIS_LINES = (
+    "R-MAT graph: n=8192, m=67568",
+    "k_max-truss: k=43, |V|=90, |E|=3192, CC=0.81",
+    "c_max-core : c=60, |V|=92, |E|=3315, CC=0.81",
+    "max clique is <= k_max = 43 (vs the weaker c_max+1 = 61)",
+    "top-down Phi_43: 3192 edges (candidate subgraphs: [4112, 5705, 8921, "
+    "10495]...)",
+    "top-down Phi_42: 63 edges (candidate subgraphs: [4112, 5705, 8921, "
+    "10495]...)",
+)
 
 
 def say(*parts) -> None:
@@ -1565,7 +1611,7 @@ def table6(core_decompose, cmax_core, clustering_coefficient,
     c_max-core (``cmax_core``) on the card, the k_max-truss from phase 3's
     phi, and the row of ``benchmarks/run.py::table6_truss_vs_core``; every
     number, the clustering coefficients too, must equal the JAX
-    package's."""
+    package's.  Returns the row and the k_max-truss's edges."""
     core, (cmax, c_edges) = run_phase("8c core decomposition rmat17", lambda: (
         core_decompose(n, edges, device=dev), cmax_core(n, edges, device=dev)))
     kmax = int(phi.max())
@@ -1587,7 +1633,7 @@ def table6(core_decompose, cmax_core, clustering_coefficient,
         diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
         raise AssertionError(f"8c: differs from the JAX package's Table 6 "
                              f"row: {diff}")
-    return dict(got, clustering_host_s=round(host_s, 3))
+    return dict(got, clustering_host_s=round(host_s, 3)), t_edges
 
 
 def global_iterate(peel_recompute, list_triangles, run_phase, rdev, g,
@@ -3691,6 +3737,278 @@ def smem_phase(torch, run_phase, build, fk, tk, ak, bk, b1_E: int,
     return dict(limit=limit, limit_source=source, entries=rows)
 
 
+# 5c's host oracles on er2048, in a child process started with the dry runs
+# (nice 19, beside phases 2-5): the triangle list's rows and the supports
+DENSE_ORACLE_CHILD = r"""
+import json, sys, time
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+from repro_torch.core.graph import build_graph
+from repro_torch.core.support import edge_support_np, list_triangles_np
+from repro_torch.data.graphgen import erdos_renyi
+out = sys.argv[1]
+g = build_graph(2048, erdos_renyi(2048, 314_000, seed=5))
+t0 = time.perf_counter()
+n_tris = len(list_triangles_np(g))
+np.save(out + ".sup.npy", edge_support_np(g))
+np.save(out + ".edges.npy", g.edges)
+with open(out + ".json", "w") as f:
+    json.dump({"triangles": n_tris, "host_s": time.perf_counter() - t0}, f)
+"""
+DENSE_ORACLE_WAIT_S = 600
+
+
+def start_dense_oracles(tmp: str) -> tuple:
+    """``DENSE_ORACLE_CHILD`` at nice 19, off the card; (process, path)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    path = os.path.join(tmp, "er2048")
+    proc = subprocess.Popen([sys.executable, "-c", DENSE_ORACLE_CHILD, path],
+                            env=env, cwd=str(ROOT), stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE,
+                            preexec_fn=lambda: os.nice(19))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path
+
+
+def dense_core_check(torch, tk, tref, build_graph, A, kw, oracles) -> dict:
+    """Phase 5c, after the truss path's counts are read: B2's S of the
+    dense core that 5c's top-down gave it (the whole er2048 graph, its ids
+    unchanged by the relabelling, which is checked), its total
+    (``ref.triangle_total``) against the rows of the host triangle list
+    (``list_triangles_np``) and its per-edge supports (``ref.edge_support``
+    at the core's canonical edges) against ``edge_support_np``: both exact.
+    The two host oracles ran in ``oracles``' child process."""
+    S = tk.triangle_count(A, **kw)
+    n = A.shape[0]
+    g = build_graph(n, torch.nonzero(torch.triu(A, 1)).cpu().numpy())
+    total = float(tref.triangle_total(S))
+    got = tref.edge_support(S, torch.as_tensor(g.edges, device=A.device))
+    got = got.cpu().numpy()
+    proc, path = oracles
+    t0 = time.perf_counter()
+    try:
+        _, err = proc.communicate(timeout=DENSE_ORACLE_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"5c: the host oracles did not end within "
+                             f"{DENSE_ORACLE_WAIT_S} s of phase 5c")
+    waited = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"5c: the host oracles exited "
+                             f"{proc.returncode}: {err.decode()[-3000:]}")
+    with open(path + ".json") as f:
+        info = json.load(f)
+    if not np.array_equal(np.load(path + ".edges.npy"), g.edges):
+        raise AssertionError("5c: the dense core is not er2048 in its own "
+                             "vertex ids")
+    sup, n_tris = np.load(path + ".sup.npy"), info["triangles"]
+    if total != n_tris:
+        raise AssertionError(f"5c: triangle_total of B2's S is {total}, the "
+                             f"host triangle list has {n_tris} rows")
+    if got.shape != sup.shape or not np.array_equal(got, sup):
+        raise AssertionError(f"5c: edge_support of B2's S differs from "
+                             f"edge_support_np on "
+                             f"{int((got != sup).sum())} of {g.m} edges")
+    out = dict(n=n, m=g.m, triangles=n_tris, triangle_total=total,
+               edges_equal=g.m, host_oracles_s=round(info["host_s"], 3),
+               waited_s=round(waited, 3))
+    say(f"[5c] dense core n={n} m={g.m}: triangle_total(S) {total} equals "
+        f"list_triangles_np's {n_tris} rows, edge_support(S, edges) equals "
+        f"edge_support_np on all {g.m} edges (host oracles "
+        f"{info['host_s']:.3f} s in a child at nice 19 beside phases 2-5c; "
+        f"waited {waited:.3f} s for them)")
+    return out
+
+
+def algorithm1_phase(serial, truss_decompose, kmax_truss, canonical_edges,
+                     rmat, run_phase, phase_walls, fig2, n17, e17, phi17,
+                     kmax_truss17, smi, dev) -> dict:
+    """Phase 6's additions: the paper's Algorithm 1 (``alg1_truss``) on the
+    Figure-2 graph and on rmat13 (5f's graph), its phi equal to the rmat13
+    digest and to ``alg2_truss``'s; one line with both host walls and the
+    in-memory ``truss_decompose`` wall on the card for that graph (the
+    paper's Table 3 in miniature, gating nothing); ``truss_from_phi`` on
+    phase 3's graph and phi at k_max equal, as a set, to 8c's k_max-truss
+    (and its size to the JAX package's), and on rmat13 to ``kmax_truss``'s
+    on the card."""
+    fig = serial.alg1_truss(12, fig2)
+    k, c = np.unique(fig, return_counts=True)
+    if dict(zip(k.tolist(), c.tolist())) != FIG2_CLASSES or \
+            not np.array_equal(fig, serial.alg2_truss(12, fig2)):
+        raise AssertionError("6: alg1_truss differs on the Figure-2 graph")
+    n13, e13 = rmat(13, 8, seed=5)
+    t0 = time.perf_counter()
+    phi_a1 = serial.alg1_truss(n13, e13)
+    a1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phi_a2 = serial.alg2_truss(n13, e13)
+    a2_s = time.perf_counter() - t0
+    check_digest("rmat13", phi_a1)
+    if not np.array_equal(phi_a1, phi_a2):
+        raise AssertionError("6: alg1_truss and alg2_truss differ on rmat13")
+    tag = "6 in-memory rmat13"
+    phi_card = run_phase(tag, lambda: truss_decompose(n13, e13, device=dev))
+    if not np.array_equal(phi_card, phi_a1):
+        raise AssertionError("6: truss_decompose on the card differs from "
+                             "alg1_truss on rmat13")
+    card_s = phase_walls[tag]
+    say(f"[6] Table 3 on rmat13 (n={n13}, m={len(phi_a1)}): alg1_truss "
+        f"(TD-inmem, host) {a1_s:.3f} s, alg2_truss (TD-inmem+, host) "
+        f"{a2_s:.3f} s, truss_decompose in-memory on the card {card_s:.3f} "
+        f"s; {smi}")
+    edge_set = lambda e: set(map(tuple, np.asarray(e).tolist()))
+    kmax17 = int(phi17.max())
+    t17 = serial.truss_from_phi(canonical_edges(e17, n17), phi17, kmax17)
+    if edge_set(t17) != edge_set(kmax_truss17) or \
+            len(t17) != MAINT_DIGESTS["8c"]["et"]:
+        raise AssertionError("6: truss_from_phi at k_max on rmat17 differs "
+                             "from 8c's k_max-truss")
+    kmax13, t13_card = kmax_truss(n13, e13, device=dev)
+    t13 = serial.truss_from_phi(canonical_edges(e13, n13), phi_a1, kmax13)
+    if kmax13 != DIGESTS["rmat13"]["kmax"] or \
+            edge_set(t13) != edge_set(t13_card):
+        raise AssertionError("6: truss_from_phi of alg1's phi differs from "
+                             "kmax_truss on the card on rmat13")
+    say(f"[6] alg1_truss equals alg2_truss and the JAX digest on rmat13 and "
+        f"the Figure-2 classes; truss_from_phi at k_max: rmat17 {len(t17)} "
+        f"edges (k={kmax17}) equal to 8c's k_max-truss, rmat13 {len(t13)} "
+        f"(k={kmax13}) equal to kmax_truss on the card")
+    return dict(m=len(phi_a1), alg1_s=a1_s, alg2_s=a2_s, card_s=card_s,
+                kmax_truss_rmat17=len(t17), kmax_truss_rmat13=len(t13))
+
+
+# phase 15's children: one example of the port each, run as a script with
+# jax and repro blocked (a stray import fails), then the kernel launches it
+# made in its own process
+EXAMPLE_CHILD = r"""
+import json, runpy, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from repro_torch.kernels.embedding_bag import kernel as bk
+from repro_torch.kernels.flash_attention import kernel as ak
+from repro_torch.kernels.frontier_peel import kernel as fk
+from repro_torch.kernels.triangle_count import kernel as tk
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("[launches] " + json.dumps({"B1": fk.LAUNCHES, "B2": tk.LAUNCHES,
+                                  "B3": ak.LAUNCHES, "B4": bk.LAUNCHES}))
+"""
+EXAMPLES = ("quickstart_torch", "truss_analysis_torch", "serve_lm_torch",
+            "train_lm_torch", "train_gnn_truss_torch")
+EXAMPLES_TIMEOUT_S = 600
+TRAIN_EXAMPLE_STEPS = 20
+
+
+def check_example(name: str, lines: list, launches: dict) -> dict:
+    """What phase 15 holds each example's output to."""
+    num = r"(-?[0-9.]+|nan|inf)"
+    if name == "quickstart_torch":
+        if tuple(lines) != QUICKSTART_LINES or not launches["B1"]:
+            raise AssertionError(f"15: quickstart_torch printed {lines}, B1 "
+                                 f"{launches['B1']}")
+        return {}
+    if name == "truss_analysis_torch":
+        if tuple(lines) != TRUSS_ANALYSIS_LINES or not launches["B1"]:
+            raise AssertionError(f"15: truss_analysis_torch printed {lines}, "
+                                 f"B1 {launches['B1']}")
+        return {}
+    if name == "serve_lm_torch":
+        m = re.fullmatch(r"\[serve\] gemma3-4b on cuda: 8 requests, prefill "
+                         r"32 toks in [0-9.]+ ms, 16 decode steps in [0-9.]+ "
+                         r"ms \(([0-9]+) tok/s\)", lines[0]) \
+            if len(lines) == 2 else None
+        toks = json.loads(lines[1].split(": ", 1)[1]) if m else []
+        if not m or len(toks) != 16 or not lines[1].startswith(
+                "[serve] first request generation: "):
+            raise AssertionError(f"15: serve_lm_torch printed {lines}")
+        return dict(tokens_per_s=int(m.group(1)))
+    if name == "train_lm_torch":
+        m = [re.fullmatch(rf"\[train\] qwen2.5-14b: loss {num} -> {num} over "
+                          rf"{TRAIN_EXAMPLE_STEPS} steps", x) for x in lines]
+        m = [x for x in m if x]
+        if not m or not lines[0].endswith("on cuda") or not all(
+                np.isfinite(float(v)) for v in m[0].groups()):
+            raise AssertionError(f"15: train_lm_torch printed {lines}")
+        return dict(loss_first=float(m[0].group(1)),
+                    loss_last=float(m[0].group(2)))
+    m = re.fullmatch(rf"GraphSAGE final loss — uniform sampling: {num}, "
+                     rf"truss-weighted sampling: {num}", lines[0]) \
+        if len(lines) == 1 else None
+    if not m or not all(np.isfinite(float(v)) for v in m.groups()):
+        raise AssertionError(f"15: train_gnn_truss_torch printed {lines}")
+    return dict(loss_uniform=float(m.group(1)),
+                loss_weighted=float(m.group(2)))
+
+
+def examples_phase(run_phase) -> dict:
+    """Phase 15: the five port examples (``examples/*_torch.py``) as child
+    processes on the card, all started together, each importing neither
+    ``jax`` nor ``repro`` (both blocked); each must exit 0 and print what
+    ``check_example`` holds it to; ``train_lm_torch`` takes
+    ``--steps TRAIN_EXAMPLE_STEPS`` and a checkpoint directory of its own.
+    Every child is killed at ``EXAMPLES_TIMEOUT_S``.  The children's kernel
+    launches are their own (printed, B1 required of the two truss
+    examples); this process launches nothing."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTHONIOENCODING="utf-8")
+    out: dict = {}
+
+    def run():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ex_") as d:
+            procs = {}
+            try:
+                for name in EXAMPLES:
+                    args = [str(ROOT / "examples" / f"{name}.py")]
+                    if name == "train_lm_torch":
+                        args += ["--steps", str(TRAIN_EXAMPLE_STEPS),
+                                 "--ckpt-dir", os.path.join(d, "ckpt")]
+                    log = open(os.path.join(d, f"{name}.out"), "w+",
+                               encoding="utf-8")
+                    procs[name] = (subprocess.Popen(
+                        [sys.executable, "-c", EXAMPLE_CHILD, *args],
+                        env=env, stdout=log, stderr=subprocess.STDOUT,
+                        cwd=d), log, time.perf_counter())
+                deadline = time.perf_counter() + EXAMPLES_TIMEOUT_S
+                walls = {}
+                while len(walls) < len(procs):
+                    if time.perf_counter() > deadline:
+                        raise AssertionError(
+                            f"15: {sorted(set(procs) - set(walls))} still "
+                            f"running after {EXAMPLES_TIMEOUT_S} s")
+                    for name, (p, _, t0) in procs.items():
+                        if name not in walls and p.poll() is not None:
+                            walls[name] = time.perf_counter() - t0
+                    time.sleep(0.1)
+            finally:
+                for p, log, _ in procs.values():
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                    log.close()
+            for name, (p, log, _) in procs.items():
+                with open(log.name, encoding="utf-8") as f:
+                    text = f.read()
+                if p.returncode != 0:
+                    raise AssertionError(f"15: {name} exited "
+                                         f"{p.returncode}:\n{text[-4000:]}")
+                lines = text.splitlines()
+                launches = json.loads(lines[-1].split(" ", 1)[1])
+                lines = [x for x in lines[:-1]
+                         if not x.startswith(("  {", "   {"))]
+                out[name] = dict(wall_s=round(walls[name], 3),
+                                 launches=launches,
+                                 **check_example(name, lines, launches))
+                say(f"[15] {name}: exit 0, wall {walls[name]:.3f} s, "
+                    f"launches in its process {launches}; "
+                    f"{lines[-1][:160]}")
+
+    run_phase("15 examples", run)
+    return out
+
+
 def main(argv) -> int:
     import torch
     import torch.distributed as tdist
@@ -3713,8 +4031,8 @@ def main(argv) -> int:
                                         incident_vertices)
     from repro_torch.core.kcore import cmax_core, core_decompose
     from repro_torch.core.maintain import truss_maintain
-    from repro_torch.core.peel import (estimate_working_set, peel_recompute,
-                                       truss_decompose)
+    from repro_torch.core.peel import (estimate_working_set, kmax_truss,
+                                       peel_recompute, truss_decompose)
     from repro_torch.core.bottom_up import bottom_up_decompose
     from repro_torch.core import distributed as rdist
     from repro_torch.core.store import ChunkedDiskStore
@@ -3760,6 +4078,7 @@ def main(argv) -> int:
     # phase 13's dry runs trace on the host while phases 2-12 use the card
     dry_tmp = tempfile.mkdtemp(prefix="chip_smoke_dry_")
     dry = start_dryruns(dry_tmp)
+    oracles = start_dense_oracles(dry_tmp)
     atexit.register(shutil.rmtree, dry_tmp, True)
     atexit.register(stop_dryruns, dry)
 
@@ -4134,6 +4453,15 @@ def main(argv) -> int:
                                      f"the counter {launches[key]}")
             trace_total[key] = ms_
 
+    # 5c, after the counts: B2's S of the dense core against the host oracles
+    (A,), kw = p2.largest[None]
+    dense_core = dense_core_check(torch, tk, tref, build_graph, A, kw,
+                                  oracles)
+    if dense_core["m"] != DIGESTS["er2048"]["m"]:
+        raise AssertionError(f"5c: the dense core has {dense_core['m']} "
+                             f"edges, er2048 {DIGESTS['er2048']['m']}")
+    del A
+
     # -- phases 5e, 5f: kill and resume, the retry ladder ------------------
     resilience = dict(kill_and_resume=kill_and_resume(
         truss_decompose, ckpt, run_phase, n15, e15, budget, phi15, dev))
@@ -4192,9 +4520,9 @@ def main(argv) -> int:
     maint["kill_and_resume"] = maintain_kill_and_resume(
         truss_maintain, truss_decompose, build_graph, rmat, ChunkedDiskStore,
         faults, ckpt, run_phase, phase_launches, dev)
-    maint["table6"] = table6(core_decompose, cmax_core,
-                             clustering_coefficient, incident_vertices,
-                             canonical_edges, run_phase, n17, e17, phi17, dev)
+    maint["table6"], kmax_truss17 = table6(
+        core_decompose, cmax_core, clustering_coefficient, incident_vertices,
+        canonical_edges, run_phase, n17, e17, phi17, dev)
     maint["global_iterate"] = global_iterate(peel_recompute, list_triangles,
                                              run_phase, rdev, g15, phi15, dev)
     maint["perpart"] = perpart(bottom_up_decompose, estimate_working_set,
@@ -4267,6 +4595,11 @@ def main(argv) -> int:
         "bottom-up, locality bottom-up, disk-store bottom-up, top-down, "
         "budgeted top-down) and er2048 (in-memory, top-down); Figure-2 "
         "equals alg2_truss")
+    table3 = algorithm1_phase(serial, truss_decompose, kmax_truss,
+                              canonical_edges, rmat, run_phase, phase_walls,
+                              fig2, n17, e17, phi17, kmax_truss17, smi, dev)
+    del kmax_truss17
+    say(f"[6] {json.dumps(dict(table3=table3, dense_core_5c=dense_core))}")
     say(f"[5e-5h] {json.dumps(resilience)}")
 
     # -- phase 7: LM path, gemma3-4b served at full width --------------------
@@ -4388,6 +4721,15 @@ def main(argv) -> int:
            for n in phase_launches[tag].values()):
         raise AssertionError("phase 14 launched a kernel")
     say(f"[14] {json.dumps(static14)}")
+
+    # -- phase 15: the port's examples as child processes on the card -------
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    examples = examples_phase(run_phase)
+    if any(phase_launches["15 examples"].values()):
+        raise AssertionError("phase 15 launched a kernel in this process")
+    say(f"[15] wall {time.perf_counter() - t15:.1f} s; "
+        f"{json.dumps(examples)}")
 
     # -- kernels on the largest inputs the main path gave them ---------------
     kernels = []

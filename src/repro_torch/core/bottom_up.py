@@ -275,6 +275,12 @@ class OocStats:
         return self.prefetch_hits / total if total else 1.0
 
     @property
+    def tri_routes(self) -> int:
+        """Whole-graph triangle routings to parts: ``build_partition_batch``
+        routes the triangles once per NS sweep, so this is ``ns_sweeps``."""
+        return self.ns_sweeps
+
+    @property
     def padding_waste(self) -> float:
         if not self.padded_slots:
             return 0.0
@@ -458,6 +464,21 @@ class LowerBoundResult:
     lb: np.ndarray           # lower bound phi(e) for G_new edges (>= 2)
     in_gnew: np.ndarray      # bool mask: edge still undecided (in G_new)
     stats: OocStats
+
+    @property
+    def rounds(self) -> int:
+        """Partition rounds (the paper's O(m/M) iterations)."""
+        return self.stats.rounds
+
+    @property
+    def scans(self) -> int:
+        """NS extractions (the I/O-scan analogue)."""
+        return self.stats.scans
+
+    @property
+    def max_part_edges(self) -> int:
+        """Largest NS working set seen (the budget check)."""
+        return self.stats.max_part_edges
 
 
 def _partition_rounds(

@@ -393,6 +393,13 @@ class PartBucket:
         return self.sup.shape[0]
 
     @property
+    def shape_key(self) -> tuple:
+        """The launch-shape key ``peel.peel_classes_batched`` notes for this
+        bucket on one device, ((B, cap_e), (B, cap_t, 3)): ``OocStats.
+        compiles`` counts the distinct keys of a run."""
+        return (tuple(self.sup.shape), tuple(self.tris.shape))
+
+    @property
     def padded_slots(self) -> int:
         return int(self.sup.size)
 

@@ -1,11 +1,20 @@
-"""Paper-faithful serial truss decomposition (numpy/python oracle).
+"""Paper-faithful serial truss decomposition (numpy/python oracles).
+
+``alg1_truss`` is Cohen's original algorithm (the paper's Algorithm 1,
+"TD-inmem"): on each edge removal it intersects the full neighbourhoods of
+both endpoints, O(sum_v deg(v)^2) in all.  It is the baseline that the
+paper's Table 3 measures the other algorithms against, so it stays this
+Python loop.
 
 ``alg2_truss`` is the paper's Algorithm 2 ("TD-inmem+"): edges kept in a
 bin-sorted array by support; on removal of e = (u, v) only the neighbours of
 the lower-degree endpoint are enumerated, with O(1) hash membership tests —
-O(m^1.5) total.  ``verify_truss`` checks a phi against the definition.  Both
-are the port's own oracles (``chip_smoke.py`` holds the card's answer on the
-paper's Figure-2 graph against them).
+O(m^1.5) in all.
+
+Both return phi per canonical edge id.  ``truss_from_phi`` extracts the
+k-truss from a phi, and ``verify_truss`` checks a phi against the
+definition.  They are the port's own oracles (``chip_smoke.py`` holds the
+card's answer against them).
 """
 
 from __future__ import annotations
@@ -62,6 +71,11 @@ def _adjacency(n: int, edges: np.ndarray) -> list[dict[int, int]]:
     return adj
 
 
+def initial_support(n: int, edges: np.ndarray) -> np.ndarray:
+    """sup(e) for every canonical edge, by degree-oriented wedge counting."""
+    return edge_support_np(glib.build_graph(n, edges))
+
+
 def alg2_truss(n: int, edges: np.ndarray,
                sup: np.ndarray | None = None) -> np.ndarray:
     """Paper Algorithm 2.  Returns phi per canonical edge id."""
@@ -71,7 +85,7 @@ def alg2_truss(n: int, edges: np.ndarray,
     if m == 0:
         return phi
     if sup is None:
-        sup = edge_support_np(glib.build_graph(n, edges))
+        sup = initial_support(n, edges)
     bins = _EdgeBins(np.asarray(sup))
     adj = _adjacency(n, edges)
     removed = np.zeros(m, dtype=bool)
@@ -99,6 +113,49 @@ def alg2_truss(n: int, edges: np.ndarray,
     return phi
 
 
+def alg1_truss(n: int, edges: np.ndarray,
+               sup: np.ndarray | None = None) -> np.ndarray:
+    """Paper Algorithm 1 (Cohen's "TD-inmem"): a full intersection of both
+    neighbourhoods on every removal.  Returns phi per canonical edge id."""
+    edges = glib.canonical_edges(edges, n)
+    m = len(edges)
+    phi = np.zeros(m, dtype=np.int64)
+    if m == 0:
+        return phi
+    if sup is None:
+        sup = initial_support(n, edges)
+    bins = _EdgeBins(np.asarray(sup))
+    adj = _adjacency(n, edges)
+    removed = np.zeros(m, dtype=bool)
+    # k starts at 3 and the threshold is strict (an edge goes while its
+    # support is below k - 2), so an edge removed at level k survives the
+    # (k-1)-truss: its phi is k - 1
+    k = 3
+    while not bins.empty():
+        if bins.min_support() >= k - 2:
+            k += 1
+            continue
+        e = bins.pop_min()
+        removed[e] = True
+        u, v = int(edges[e, 0]), int(edges[e, 1])
+        # Steps 5-6: the whole intersection, no degree ordering
+        for w in set(adj[u].keys()) & set(adj[v].keys()):
+            euw, evw = adj[u][w], adj[v][w]
+            if not removed[euw]:
+                bins.decrement(euw)
+            if not removed[evw]:
+                bins.decrement(evw)
+        del adj[u][v], adj[v][u]
+        phi[e] = k - 1
+    return phi
+
+
+def truss_from_phi(edges: np.ndarray, phi: np.ndarray, k: int) -> np.ndarray:
+    """The k-truss's edges: the union of the classes >= k (paper Section
+    2).  ``edges`` are the canonical edges ``phi`` is indexed by."""
+    return edges[phi >= k]
+
+
 def verify_truss(n: int, edges: np.ndarray, phi: np.ndarray) -> bool:
     """Definition-level check: for each k, every edge of the k-truss has
     support >= k-2 inside the k-truss."""
@@ -106,7 +163,7 @@ def verify_truss(n: int, edges: np.ndarray, phi: np.ndarray) -> bool:
     if len(edges) == 0:
         return True
     for k in range(2, int(phi.max()) + 1):
-        tk = edges[phi >= k]
+        tk = truss_from_phi(edges, phi, k)
         if len(tk) and (edge_support_np(glib.build_graph(n, tk)) < k - 2).any():
             return False
     return True

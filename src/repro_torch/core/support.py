@@ -131,6 +131,12 @@ class WedgeBucket:
     D: int                # wedge-slot bound for this bucket (pow2)
     chunk: int            # scan chunk size
 
+    @property
+    def capacity(self) -> int:
+        """Wedge elements this bucket materialises in all: its padded edges
+        times D (``edge_support`` scans them ``chunk`` edges at a time)."""
+        return len(self.eids) * self.D
+
 
 def wedge_bucket_plan(g: Graph, chunk: int = 1 << 14,
                       budget: int = 1 << 18) -> list[WedgeBucket]:

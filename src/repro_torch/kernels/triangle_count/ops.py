@@ -8,6 +8,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import check_kernel
 from repro_torch.kernels.triangle_count import kernel as tk
+from repro_torch.kernels.triangle_count import ref
 
 
 def dense_support(A: torch.Tensor, *, kernel: str = "auto",
@@ -38,4 +39,4 @@ def dense_edge_support(n: int, edges: np.ndarray, *, kernel: str = "auto",
     A = adjacency_from_edges(n, edges, device=device)
     S = dense_support(A, kernel=kernel, symmetric=True)
     e = torch.as_tensor(np.asarray(edges, np.int64), device=A.device)
-    return S[e[:, 0], e[:, 1]].to(torch.int64).cpu().numpy()
+    return ref.edge_support(S, e).to(torch.int64).cpu().numpy()

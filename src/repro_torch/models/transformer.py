@@ -112,6 +112,16 @@ class LMConfig:
     def moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def n_periods(self) -> int:
+        """Full periods of the attention pattern in the depth."""
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def n_remainder(self) -> int:
+        """Layers after the last full period."""
+        return self.n_layers % len(self.pattern)
+
     def param_count(self) -> int:
         d, dh = self.d_model, self.d_head
         attn = d * (self.n_q + 2 * self.n_kv) * dh + self.n_q * dh * d
@@ -598,13 +608,15 @@ def loss_fn(params, batch: dict, cfg: LMConfig, *, device=None):
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
-def init_cache(cfg: LMConfig, batch: int, max_seq: int,
+def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> dict:
-    """A zero cache on ``device``; under a mesh, ``DTensor``s placed by
+    """A zero cache on ``device``, k and v in ``dtype`` (None:
+    ``cfg.compute_dtype``); under a mesh, ``DTensor``s placed by
     ``cache_specs`` (each rank allocates its own shard)."""
     dev = resolve_device(device)
+    dtype = dtype or cfg.compute_dtype
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv, cfg.d_head)
-    kinds = {"k": (shape, cfg.compute_dtype), "v": (shape, cfg.compute_dtype),
+    kinds = {"k": (shape, dtype), "v": (shape, dtype),
              "pos": ((batch,), torch.int32)}
     mesh = cm.current_mesh()
     if mesh is not None:

@@ -174,3 +174,40 @@ def test_generate_matches_jax_serving_loop():
     gen = tserve.generate(tp, prompts, tcfg, new, max_seq, device="cpu")
     np.testing.assert_array_equal(gen.tokens, np.stack(want, 1))
     np.testing.assert_allclose(_np(gen.logits), _np(logits), **TOL)
+
+
+@pytest.mark.parametrize("arch", tregistry.LM_ARCHS)
+def test_pattern_periods_match_jax(arch):
+    """``n_periods`` and ``n_remainder`` of every LM arch's full config
+    equal the JAX config's."""
+    jcfg, tcfg = jregistry.get_config(arch), tregistry.get_config(arch)
+    assert (tcfg.n_periods, tcfg.n_remainder) == (jcfg.n_periods,
+                                                  jcfg.n_remainder)
+    assert tcfg.n_periods * len(tcfg.pattern) + tcfg.n_remainder \
+        == tcfg.n_layers
+
+
+@pytest.mark.parametrize("dtype", [None, torch.float32])
+def test_init_cache_dtype_matches_jax(dtype, tmp_path):
+    """``init_cache(dtype=)`` gives k and v in ``dtype`` (None: the
+    config's compute dtype), as the JAX ``init_cache`` does, without a mesh
+    and under a one-rank gloo ``use_mesh`` (``DTensor`` leaves)."""
+    from repro_torch.models import common as cm
+    from tests import torch_mesh
+
+    jcfg, tcfg = _configs("gemma3-4b")
+    want = JT.init_cache(jcfg, 2, 24, None if dtype is None else jnp.float32)
+    got = TT.init_cache(tcfg, 2, 24, dtype, device="cpu")
+    wdt = torch.float32 if dtype else tcfg.compute_dtype
+    for k in ("k", "v", "pos"):
+        assert tuple(got[k].shape) == want[k].shape
+        assert got[k].dtype == (torch.int32 if k == "pos" else wdt)
+        assert str(want[k].dtype) == str(got[k].dtype).split(".")[-1]
+        assert not got[k].any()
+    with torch_mesh.one_rank_mesh(tmp_path, (1, 1)) as mesh, \
+            cm.use_mesh(mesh):
+        placed = TT.init_cache(tcfg, 2, 24, dtype, device="cpu")
+    for k in ("k", "v", "pos"):
+        assert cm.is_dtensor(placed[k])
+        assert placed[k].dtype == got[k].dtype
+        assert tuple(placed[k].shape) == tuple(got[k].shape)

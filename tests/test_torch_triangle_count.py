@@ -106,3 +106,34 @@ def test_dense_edge_support_promises_symmetry(monkeypatch):
     monkeypatch.setattr(ttk, "triangle_count", spy)
     tops.dense_edge_support(40, _edges(40, 0.3, 1), device="cpu")
     assert seen == [dict(symmetric=True)]
+
+
+@pytest.mark.parametrize("n,p", [(64, 0.3), (128, 0.2), (200, 0.15)])
+def test_triangle_total_and_edge_support_match_jnp_ref(n, p):
+    """``ref.triangle_total`` and ``ref.edge_support`` on the port's S of a
+    seeded adjacency against the JAX package's jnp ``ref`` on its S, and
+    against the numpy triangle list and support oracle: exact."""
+    import jax.numpy as jnp
+
+    from repro.core.support import list_triangles_np
+    from repro.kernels.triangle_count import ref as jref
+    from repro_torch.kernels.triangle_count import ref as tref
+
+    edges = _edges(n, p, 11 * n)
+    S_j = jref.support_dense(jnp.asarray(jops.adjacency_from_edges(n, edges)))
+    S_t = tops.dense_support(tops.adjacency_from_edges(n, edges,
+                                                       device="cpu"))
+    total = tref.triangle_total(S_t)
+    assert total.dtype == torch.float64 and total.shape == ()
+    assert float(total) == float(jref.triangle_total(S_j))
+    assert float(total) == len(list_triangles_np(jgraph.build_graph(n, edges)))
+    e_t = torch.as_tensor(edges)
+    got = tref.edge_support(S_t, e_t)
+    assert got.dtype == torch.int32 and got.shape == (len(edges),)
+    want = np.asarray(jref.edge_support(S_j, jnp.asarray(edges)))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
+    np.testing.assert_array_equal(
+        got.numpy(), edge_support_np(jgraph.build_graph(n, edges)))
+    # int32 edge ids gather the same rows
+    np.testing.assert_array_equal(
+        tref.edge_support(S_t, e_t.to(torch.int32)).numpy(), got.numpy())
