@@ -88,18 +88,21 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    (``MAINT_DIGESTS``, made by ``tools/smoke_digests.py``):
    8a. an edit stream on phase 4's graph from phase 4a's phi:
        ``truss_maintain`` of ``edit_batch``'s 1 and 64 edits (the draw of
-       ``benchmarks/run.py``'s ``table5maint``), each followed by a
+       ``benchmarks/run.py``'s ``table5maint``) and of ``closing_insert``'s
+       one insertion that closes 29 triangles, each followed by a
        recompute of the maintained edges on the card; phi equal to the
-       recompute and to the digest, B1 launched at b = 64, and
-       ``speedup_vs_recompute`` at least 5 at b = 1 (the reference's gate);
+       recompute and to the digest, B1 launched at b = 64 and by the
+       closing insertion (whose region must be non-empty), and
+       ``speedup_vs_recompute`` at least 5 at b = 1 (the reference's gate;
+       that edit closes no triangle, so it times the splice);
        B1 is then checked and timed on the largest call the maintenance
        gave it;
    8b. 16 edits on 5f's graph through a disk store in 5h's regime,
        journaled every edit: phi and the write counters equal the JAX
        package's; a child process (importing only ``repro_torch``) running
-       the same call is SIGKILLed before edit 8 and resumed here on the
-       same journal: the same phi, ``resumed_round`` 7, edits 8-15 alone
-       replayed;
+       the same call is SIGKILLed before edit 4 and resumed here on the
+       same journal: the same phi, ``resumed_round`` 3, edits 4-15 alone
+       replayed, B1 launched by the replay of deletions 4-7;
    8c. Table 6 on phase 3's graph: core numbers and the c_max-core on the
        card, the k_max-truss from phase 3's phi, and V, E, k and the
        clustering coefficients of both, equal to the JAX package's;
@@ -408,12 +411,17 @@ B4_TOL = dict(rtol=1e-5, atol=5e-4)
 # one bf16 step (at most 2^-7 |out|) where their float32 sums straddle a
 # rounding point; near 0 the float32 orders differ by B4_TOL's atol.
 B4_BF16_TOL = dict(rtol=2 ** -7, atol=B4_TOL["atol"])
-B4_DESIGN = ("a warp per bag: its indices staged in shared memory, 128 at a "
-             "time (four coalesced loads of 32, the next 128 in flight), rows "
-             "read as the widest vector that divides the row and the table's "
-             "address (D = 18 float32: float2, 9 lanes a row, 3 rows a load "
-             "instruction), 8 row loads (__ldg) a lane in flight, float32 "
-             "sums of the row groups combined by shuffles")
+B4_DESIGN = ("two entries by bag length. Rows read as the widest vector "
+             "that divides the row and the table's address (D = 18 float32: "
+             "float2, 9 lanes a row, 3 rows a load instruction). Small bags "
+             "(L <= kernel.L_SMALL): a lane group per bag, 3 bags a load "
+             "instruction at D = 18, indices read directly (the next "
+             "position's in flight with the rows), 8 bags a lane in flight, "
+             "a grid of SMs x resident blocks striding over the bags, float32 "
+             "sums in bag order. Long bags: a warp per bag, its indices "
+             "staged in shared memory, 128 at a time (the next 128 in "
+             "flight), 8 row loads (__ldg) a lane in flight, float32 sums of "
+             "the row groups combined by shuffles")
 # DIN's embedding table (V x D float32) and its bags of L: serve_p99 and
 # serve_bulk batches
 DIN_V, DIN_D, DIN_L, DIN_BATCHES = 10_000_000, 18, 100, (512, 262_144)
@@ -421,18 +429,30 @@ DIN_V, DIN_D, DIN_L, DIN_BATCHES = 10_000_000, 18, 100, (512, 262_144)
 # DIN's f32 shapes on an H100 80GB HBM3 at 700 W (PERF.md, run H)
 B4_RUN_H_MS = {(512, "sum"): 0.0382, (512, "mean"): 0.0236,
                (262_144, "sum"): 1.3980, (262_144, "mean"): 1.3977}
-# B4 at every branch of its layout (dtype, D, B, L, table offset in
-# elements; V = 100,000): float2 / bf16x2 rows of 9 lanes (D = 18), the 4-
-# and 2-byte fallbacks (D = 17), float4 and one row a load (D = 128, bf16:
-# two rows), passes over a wide row (D = 256), a table 4 bytes off 16-byte
-# alignment (4-byte loads at D = 128), L = 1, L over the 128 staged indices
-# (300, 130), B = 1.
+# B4 at every branch of its layout, each case through both entries (dtype,
+# D, B, L, table offset in elements; V = 100,000): float2 / bf16x2 rows of 9
+# lanes (D = 18), the 4- and 2-byte fallbacks (D = 17), float4 and one row a
+# load (D = 128, bf16: two rows), passes over a wide row (D = 256), a table
+# 4 bytes off 16-byte alignment (4-byte loads at D = 128), L = 1, L over the
+# 128 staged indices (300, 130), B = 1; then the small bags (L = 1, 2, 3, 7)
+# in float32 and bf16 at D = 17, 18, 128 and 256, with tables one element
+# off (4- and 2-byte loads, passes over 128 and 256 vectors), B = 1 and B
+# not a multiple of the bags a warp tile takes (24 at D = 18).
 B4_CASES = (("float32", 18, 1000, 100, 0), ("bf16", 18, 1000, 100, 0),
             ("float32", 17, 1000, 100, 0), ("bf16", 17, 1000, 7, 0),
             ("float32", 128, 1000, 100, 0), ("bf16", 128, 1000, 130, 0),
             ("float32", 256, 1000, 100, 0), ("float32", 128, 1000, 100, 1),
             ("float32", 18, 1000, 1, 0), ("float32", 18, 1000, 300, 0),
-            ("float32", 18, 1, 100, 0), ("float32", 256, 1, 1, 0))
+            ("float32", 18, 1, 100, 0), ("float32", 256, 1, 1, 0),
+            ("bf16", 18, 1001, 1, 0), ("float32", 18, 1003, 2, 0),
+            ("float32", 17, 997, 3, 0), ("bf16", 17, 1, 7, 0),
+            ("float32", 128, 1001, 7, 1), ("bf16", 128, 999, 2, 0),
+            ("float32", 256, 1001, 3, 0), ("bf16", 256, 1, 1, 1),
+            ("float32", 18, 1, 1, 1), ("bf16", 18, 25, 3, 1))
+# phase 2's sweep of B4 over the bag length on DIN's table: L, at
+# B4_SWEEP_IDS ids each (B = B4_SWEEP_IDS // L), sum
+B4_SWEEP_L = (1, 2, 4, 8, 16, 32, 100)
+B4_SWEEP_IDS = 26_214_400
 # phase 7: last-token logits of the flash and the plain prefill in bf16.
 # The two paths round attention outputs to bf16 at other points, and the
 # difference grows through 34 layers: on an H100 80GB HBM3 at 700 W it was
@@ -746,11 +766,13 @@ def b3_bound(q, k, window) -> tuple[float, str]:
 
 
 def b4_bound_ms(table, idx) -> float:
-    """Least time of an embedding bag: the gathered rows, the indices and
-    the output moved once over the memory rate."""
+    """Least time of an embedding bag: the distinct rows it gathers (each
+    read once: what these ids need), the indices and the output moved once
+    over the memory rate."""
     B, L = idx.shape
     row = table.shape[1] * table.element_size()
-    return (B * L * row + B * L * 4 + B * row) / HBM_BYTES_PER_S * 1e3
+    rows = int(idx.unique().numel())
+    return (rows * row + B * L * 4 + B * row) / HBM_BYTES_PER_S * 1e3
 
 
 def b4_traffic(table, idx) -> dict:
@@ -872,14 +894,19 @@ def b1b2_build_check(build) -> dict:
     return out
 
 
+B4_ENTRY_RE = (r"(embedding_bag_kernel|embedding_bag_small|gather_probe)"
+               r"I(f|13__nv_bfloat16)Li(\d+)E")
+# B4's entries by their kernel function
+B4_ENTRY_FN = {"warp": "embedding_bag_kernel", "small": "embedding_bag_small"}
+
+
 def b4_build_check(build) -> dict:
-    """Print what ptxas made of every B4 instantiation and of the gather
-    probe; raise if one spills.  Returns the figures by (function, dtype,
-    load bytes)."""
+    """Print what ptxas made of every instantiation of B4's two entries and
+    of the gather probe; raise if one spills or an entry is missing.
+    Returns the figures by (function, dtype, load bytes)."""
     out = {}
     for name, r in ptxas_kernels(build.report("embedding_bag")).items():
-        m = re.search(r"(embedding_bag_kernel|gather_probe)"
-                      r"I(f|13__nv_bfloat16)Li(\d+)E", name)
+        m = re.search(B4_ENTRY_RE, name)
         if m is None:
             continue
         key = (m[1], "float32" if m[2] == "f" else "bf16", int(m[3]))
@@ -888,11 +915,14 @@ def b4_build_check(build) -> dict:
             f"registers, {r['spill_stores']} bytes spill stores, "
             f"{r['stack']} bytes stack, {r['static_smem']} bytes static "
             f"shared memory")
-        if r["spill_stores"]:
-            raise AssertionError(f"B4 {key} spills {r['spill_stores']} bytes")
         out[key] = r
-    if not any(k[0] == "embedding_bag_kernel" for k in out):
-        raise AssertionError("no embedding_bag_kernel in the ptxas report")
+    spills = {k: r["spill_stores"] for k, r in out.items()
+              if r["spill_stores"]}
+    if spills:
+        raise AssertionError(f"B4 spills (bytes): {spills}")
+    for fn in B4_ENTRY_FN.values():
+        if not any(k[0] == fn for k in out):
+            raise AssertionError(f"no {fn} in the ptxas report")
     return out
 
 
@@ -980,30 +1010,83 @@ class Probe:
         return sum(s.elapsed_time(e) for s, e in self.events)
 
 
-def check_b4(torch, bk, bref, table, idx, mode: str, where: str) -> float:
-    """B4 against its plain version on the same inputs, within B4_TOL
-    (float32) or B4_BF16_TOL (bf16); returns the max abs error."""
+def check_b4(torch, bk, bref, table, idx, mode: str, where: str,
+             use=None) -> float:
+    """B4 (the entry ``use``; None: the one the bag length takes) against
+    its plain version on the same inputs: a sum of one row exactly (DIN's
+    lookups), else within B4_TOL (float32) or B4_BF16_TOL (bf16); returns
+    the max abs error."""
     tol = B4_TOL if table.dtype == torch.float32 else B4_BF16_TOL
-    got = bk.embedding_bag(table, idx, mode=mode)
+    got = bk.embedding_bag(table, idx, mode=mode, use=use)
     want = bref.embedding_bag(table, idx, mode=mode)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    if got.dtype != want.dtype or got.shape != want.shape or \
-            not torch.allclose(got.float(), want.float(), **tol):
-        raise AssertionError(f"B4 embedding_bag differs from its plain "
-                             f"version {where} {mode}: max abs err {err}")
+    exact = mode == "sum" and idx.shape[1] == 1
+    if got.dtype != want.dtype or got.shape != want.shape or not (
+            torch.equal(got, want) if exact
+            else torch.allclose(got.float(), want.float(), **tol)):
+        raise AssertionError(f"B4 embedding_bag ({use or 'dispatch'}) "
+                             f"differs from its plain version {where} "
+                             f"{mode}: max abs err {err}"
+                             f"{' (must be exact)' if exact else ''}")
     return err
 
 
+def b4_sweep(torch, F, bk, bref, gen, table, dev) -> list:
+    """Phase 2's sweep of B4 over the bag length on DIN's float32 table:
+    for each L of ``B4_SWEEP_L``, B = ``B4_SWEEP_IDS`` // L bags drawn as
+    phase 2 draws them, in ``sum`` mode (DIN's).  Both entries are checked
+    against the plain version and timed; the one ``bk.entry(L)`` takes is
+    also timed in a CUDA graph, beside the library call
+    (``torch.index_select`` at L = 1, ``F.embedding_bag`` above) and the
+    byte bound.  This sets ``kernel.L_SMALL``."""
+    rows = []
+    for L in B4_SWEEP_L:
+        B = B4_SWEEP_IDS // L
+        idx = torch.randint(0, DIN_V, (B, L), generator=gen, device=dev,
+                            dtype=torch.int32)
+        use = bk.entry(L)
+        err = max(check_b4(torch, bk, bref, table, idx, "sum",
+                           f"in the sweep at L={L}", u) for u in bk.ENTRIES)
+        ms = {u: time_ms(torch, lambda: bk.embedding_bag(
+            table, idx, mode="sum", use=u), 20) for u in bk.ENTRIES}
+        graph = graph_ms(torch, lambda: bk.embedding_bag(table, idx,
+                                                         mode="sum"), 20)
+        if L == 1:
+            ids = idx.reshape(-1).long()
+            library = "torch.index_select"
+            lib = time_ms(torch, lambda: torch.index_select(table, 0, ids),
+                          20)
+            del ids
+        else:
+            library = "F.embedding_bag"
+            lib = time_ms(torch, lambda: F.embedding_bag(idx, table,
+                                                         mode="sum"), 20)
+        row = dict(L=L, B=B, entry=use, ms=ms[use], graph_ms=graph,
+                   small_ms=ms["small"], warp_ms=ms["warp"],
+                   library=library, library_ms=lib,
+                   bound_ms=b4_bound_ms(table, idx), max_abs_err=err)
+        rows.append(row)
+        say(f"[2] B4 sweep V={DIN_V:,} D={DIN_D} float32 L={L} B={B:,} "
+            f"sum: entry {use}, kernel {row['ms']:.4f} ms (in a CUDA graph "
+            f"{graph:.4f} ms); small entry {ms['small']:.4f} ms, warp entry "
+            f"{ms['warp']:.4f} ms; {library} {lib:.4f} ms; bound "
+            f"{row['bound_ms']:.4f} ms (bytes); max abs err {err:.3g}")
+        del idx
+    return rows
+
+
 def b4_phase(torch, F, bk, bref, gen, builds, dev) -> dict:
-    """Phase 2 for B4: every case of B4_CASES in sum and mean, then DIN's
-    table (10,000,000 x 18, float32 and bf16) at serve_p99 (512 bags) and
-    serve_bulk (262,144 bags) of 100: checked, timed beside run H, the plain
-    version, F.embedding_bag, the byte bound, the sector and segment traffic
-    (derived from the shapes, not measured) and the gather probe's floor.  The kernel is
-    also timed in a CUDA graph (its device time without the host's cost of a
-    call), and so is the probe.  Returns the kernels-line entry (serve_bulk,
-    float32, mean)."""
+    """Phase 2 for B4: every case of B4_CASES in sum and mean through both
+    entries, then DIN's table (10,000,000 x 18, float32 and bf16) at
+    serve_p99 (512 bags) and serve_bulk (262,144 bags) of 100: checked,
+    timed beside run H, the plain version, F.embedding_bag, the byte bound,
+    the sector and segment traffic (derived from the shapes, not measured)
+    and the gather probe's floor.  The kernel is also timed in a CUDA graph
+    (its device time without the host's cost of a call), and so is the
+    probe.  Then :func:`b4_sweep` over the bag length.  Returns the
+    kernels-line entry (serve_bulk, float32, mean), the sweep under
+    "sweep"."""
     dtypes = {"float32": torch.float32, "bf16": torch.bfloat16}
     for dname, D, B, L, offset in B4_CASES:
         V = 100_000
@@ -1013,12 +1096,14 @@ def b4_phase(torch, F, bk, bref, gen, builds, dev) -> dict:
                             dtype=torch.int32)
         lay = bk.layout(D, table.element_size(), table.data_ptr())
         where = f"at {dname} D={D} B={B} L={L} offset {offset}"
-        errs = [check_b4(torch, bk, bref, table, idx, mode, where)
-                for mode in bk.MODES]
+        errs = {(use, mode): check_b4(torch, bk, bref, table, idx, mode,
+                                      where, use)
+                for use in bk.ENTRIES for mode in bk.MODES}
         say(f"[2] B4 embedding_bag {dname} D={D} B={B} L={L} table offset "
             f"{offset}: {lay.vec}-byte loads, {lay.chunks} a row, "
-            f"{lay.rows} rows a load, {lay.passes} pass(es); max abs err "
-            f"sum {errs[0]:.3g}, mean {errs[1]:.3g}")
+            f"{lay.rows} rows a load, {lay.passes} pass(es); dispatch "
+            f"{bk.entry(L)}; max abs err " + ", ".join(
+                f"{use} {mode} {e:.3g}" for (use, mode), e in errs.items()))
     table = torch.randn((DIN_V, DIN_D), generator=gen, device=dev)
     out = None
     for B in DIN_BATCHES:
@@ -1072,10 +1157,13 @@ def b4_phase(torch, F, bk, bref, gen, builds, dev) -> dict:
                         traffic_derived_from_shapes=traffic, graph_ms=device,
                         build=builds.get(("embedding_bag_kernel", "float32",
                                           lay.vec)),
+                        build_small=builds.get(("embedding_bag_small",
+                                                "float32", lay.vec)),
                         note="no model path of the JAX package reaches "
                         "embedding_bag; timed at DIN serve_bulk")
             del tbl
         del idx
+    out["sweep"] = b4_sweep(torch, F, bk, bref, gen, table, dev)
     return out
 
 
@@ -1257,6 +1345,43 @@ def edit_batch(n: int, edges: np.ndarray, b: int) -> list:
     return steps
 
 
+# 8a's third case: an insertion that closes at least this many triangles
+CLOSING_MIN_TRIANGLES = 25
+
+
+def closing_insert(n: int, edges: np.ndarray,
+                   min_triangles: int = CLOSING_MIN_TRIANGLES) -> list:
+    """One insertion that closes triangles, drawn from a fresh
+    ``default_rng(9)``: an endpoint w of a uniform edge of the canonical
+    list ``edges``, two distinct neighbours of w drawn without replacement;
+    the first such pair that is not an edge and whose endpoints share at
+    least ``min_triangles`` neighbours (the triangles the insertion
+    closes).  On R-MAT scale 15, seed 5, its region is peeled, so B1 runs
+    where :func:`edit_batch`'s b = 1 insertion only splices."""
+    rng = np.random.default_rng(9)
+    edges = np.asarray(edges, np.int64)
+    both = np.concatenate([edges, edges[:, ::-1]])
+    both = both[np.lexsort((both[:, 1], both[:, 0]))]
+    indptr = np.searchsorted(both[:, 0], np.arange(n + 1))
+    present = {tuple(e) for e in edges.tolist()}
+
+    def nbrs(x):
+        return both[indptr[x]:indptr[x + 1], 1]
+
+    while True:
+        w = int(edges[rng.integers(0, len(edges)), rng.integers(0, 2)])
+        nb = nbrs(w)
+        if len(nb) < 2:
+            continue
+        u, v = sorted(int(x) for x in nb[rng.choice(len(nb), 2,
+                                                     replace=False)])
+        if (u, v) in present:
+            continue
+        if len(np.intersect1d(nbrs(u), nbrs(v),
+                              assume_unique=True)) >= min_triangles:
+            return [("insert", u, v)]
+
+
 # phase 5h's child: bottom-up on rmat13 through a disk store, journaled at
 # every round, killed by a "kill" rule at the nth chunk write.  It imports
 # only repro_torch.
@@ -1420,6 +1545,9 @@ MAINT_DIGESTS = {
     "8a_b1": dict(
         m=234_004, edits_applied=1, maintain_levels=0, affected_edges=0,
         sha256="29f6c5c9def131d3088fb6105e0610d35843387632f2abf4aef9343beacb8497"),
+    "8a_b1_closing": dict(
+        m=234_004, edits_applied=1, maintain_levels=21, affected_edges=59,
+        sha256="2457be2ce39be22b5f31df11027110f6aa212a136efca8be0aaf672bb4326f54"),
     "8a_b64": dict(
         m=234_003, edits_applied=64, maintain_levels=171, affected_edges=48_129,
         sha256="a8605711cb88a07b61621bdd67d506cb0092b7da706d99e7081d40ae43224625"),
@@ -1453,22 +1581,30 @@ def check_maint(where: str, res, want: dict) -> None:
 def edit_stream(truss_maintain, truss_decompose, run_phase, phase_walls,
                 phase_launches, n, edges, phi0, dev) -> dict:
     """Phase 8a on R-MAT scale 15: ``truss_maintain`` of
-    :func:`edit_batch`'s b = 1 and b = 64 edits from phase 4a's phi, each
+    :func:`edit_batch`'s b = 1 and b = 64 edits and of
+    :func:`closing_insert`'s one insertion from phase 4a's phi, each
     followed by a recompute of the maintained edge list on the card.  The
     maintained phi must equal the recompute bit for bit and the JAX
     package's digest (``MAINT_DIGESTS``); at b = 1 the recompute must take
     at least 5x the maintenance's wall (the reference's ``table5maint``
-    gate), and at b = 64 B1 must have launched."""
+    gate; that insertion closes no triangle, so the gate times the splice),
+    at b = 64 B1 must have launched, and the closing insertion must peel a
+    region (``affected_edges`` and ``maintain_levels`` above 0, B1
+    launched); its speedup is printed, not gated."""
     out = {}
-    for b in (1, 64):
-        steps = edit_batch(n, edges, b)
-        tag, rtag = f"8a maintain b={b} rmat15", f"8a recompute b={b} rmat15"
+    cases = (("b1", 1, edit_batch(n, edges, 1)),
+             ("b64", 64, edit_batch(n, edges, 64)),
+             ("b1_closing", 1, closing_insert(n, edges)))
+    for key, b, steps in cases:
+        what = f"b={b}" + (" closing" if key.endswith("closing") else "")
+        tag, rtag = f"8a maintain {what} rmat15", f"8a recompute {what} rmat15"
         res = run_phase(tag, lambda: truss_maintain((n, edges), phi0, steps,
                                                     device=dev))
         phi_r = run_phase(rtag, lambda: truss_decompose(
             res.graph.n, res.graph.edges, device=dev))
         st = res.stats
-        row = dict(b=b, m=res.graph.m, edits_applied=st.edits_applied,
+        row = dict(b=b, edits=steps if b == 1 else len(steps),
+                   m=res.graph.m, edits_applied=st.edits_applied,
                    maintain_levels=st.maintain_levels,
                    affected_edges=st.affected_edges,
                    wall_s=round(phase_walls[tag], 3),
@@ -1476,18 +1612,23 @@ def edit_stream(truss_maintain, truss_decompose, run_phase, phase_walls,
                    speedup_vs_recompute=round(
                        phase_walls[rtag] / phase_walls[tag], 2),
                    launches=phase_launches[tag]["B1"])
-        out[f"b{b}"] = row
-        say(f"[8a] {row}")
+        out[key] = row
+        say(f"[8a] {key}: {row}")
         if not np.array_equal(res.phi, phi_r):
             raise AssertionError(f"8a: the maintained phi differs from the "
-                                 f"recompute at b={b}")
-        check_maint(f"8a b={b}", res, MAINT_DIGESTS[f"8a_b{b}"])
+                                 f"recompute at {what}")
+        check_maint(f"8a {what}", res, MAINT_DIGESTS[f"8a_{key}"])
     if out["b64"]["launches"] == 0:
         raise AssertionError("8a: the b=64 maintenance never launched B1")
     if out["b1"]["speedup_vs_recompute"] < 5:
         raise AssertionError(f"8a: speedup_vs_recompute "
                              f"{out['b1']['speedup_vs_recompute']} < 5 at "
                              f"b=1")
+    closing = out["b1_closing"]
+    if not (closing["affected_edges"] > 0 and closing["maintain_levels"] > 0
+            and closing["launches"] > 0):
+        raise AssertionError(f"8a: the closing insertion peeled no region: "
+                             f"{closing}")
     return out
 
 
@@ -1519,7 +1660,7 @@ with ChunkedDiskStore(store_dir, host_memory_budget=int(host_budget),
                    checkpoint_dir=journal, checkpoint_every=1, device=device)
 print("the child was not killed")
 """
-MAINT_KILL_EDIT = 8
+MAINT_KILL_EDIT = 4
 
 
 def maintain_kill_and_resume(truss_maintain, truss_decompose, build_graph,
@@ -1532,8 +1673,9 @@ def maintain_kill_and_resume(truss_maintain, truss_decompose, build_graph,
     only ``repro_torch``) runs the same call and is SIGKILLed before edit
     ``MAINT_KILL_EDIT``; this process resumes it on the same journal with a
     new store on the child's directory: phi equal to the uninterrupted
-    run's, ``resumed_round`` the edit before the kill, and the ``maintain``
-    site reached only by the edits after it."""
+    run's, ``resumed_round`` the edit before the kill, the ``maintain``
+    site reached only by the edits after it, and B1 launched by the replay
+    (the kill lands among the deletions, edits 0-7, whose regions peel)."""
     n, edges = rmat(13, 8, seed=5)
     g = build_graph(n, edges)
     _, host_budget, chunk_bytes = store_budget(g)
@@ -1600,6 +1742,9 @@ def maintain_kill_and_resume(truss_maintain, truss_decompose, build_graph,
                              f"{res.stats.resumed_round}, {seen.seen} edits "
                              f"replayed; expected edits {want + 1}-"
                              f"{len(steps) - 1} only")
+    if out["resume"]["launches"] == 0:
+        raise AssertionError("8b: the resume replayed no region peel (B1 "
+                             "never launched)")
     return out
 
 
@@ -2712,9 +2857,11 @@ def din_phases(torch, run_phase, phase_launches, bk, bref, dev) -> dict:
 
     # 11b serve_bulk: both routes on the card, B4's four calls probed
     bd = to_device(torch, batch(fam.SHAPES["serve_bulk"]["batch"], 1), dev)
+    # the four calls differ in (V, bags), so all four are kept; their bound
+    # (a sort of the ids) is summed after the path, not inside its wall
     probe = Probe(torch, bk, "embedding_bag",
                   size=lambda t, i, **kw: i.numel(),
-                  bound=lambda t, i, **kw: b4_bound_ms(t, i),
+                  bound=lambda *a, **kw: 0.0,
                   group=lambda t, i, **kw: (t.shape[0], i.shape[0]))
     try:
         with torch.no_grad():
@@ -2735,7 +2882,7 @@ def din_phases(torch, run_phase, phase_launches, bk, bref, dev) -> dict:
             peak_mib={"bag": bag_peak, "take": take_peak},
             wall_s={k: wall_s(torch, lambda: DIN.din_scores(
                 params, bd, cfg, kernel=k)) for k in ("bag", "take")},
-            b4_event_ms=b4_path_ms, b4_bound_ms=probe.bound_ms)
+            b4_event_ms=b4_path_ms)
     del bag, take
     calls = []
     for (V, N), ((table, idx), _) in sorted(probe.largest.items(),
@@ -2744,7 +2891,8 @@ def din_phases(torch, run_phase, phase_launches, bk, bref, dev) -> dict:
                        f"on DIN's path V={V} bags={N}")
         ids = idx.reshape(-1).long()
         calls.append(dict(
-            V=V, bags=N, L=idx.shape[1], max_abs_err=err,
+            V=V, bags=N, L=idx.shape[1], entry=bk.entry(idx.shape[1]),
+            max_abs_err=err,
             ms=time_ms(torch, lambda: bk.embedding_bag(table, idx,
                                                        mode="sum"), 20),
             plain_ms=time_ms(torch, lambda: bref.embedding_bag(
@@ -2756,8 +2904,12 @@ def din_phases(torch, run_phase, phase_launches, bk, bref, dev) -> dict:
             f"{N:,} bags of 1 (sum): {calls[-1]}")
     del probe
     out["11b"]["b4_calls"] = calls
+    if len(calls) != out["11b"]["b4_launches"]:
+        raise AssertionError(f"11b: {len(calls)} B4 calls kept of "
+                             f"{out['11b']['b4_launches']}")
     for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
         out["11b"][f"b4_sum_{k}"] = sum(c[k] for c in calls)
+    out["11b"]["b4_bound_ms"] = out["11b"]["b4_sum_bound_ms"]
     say(f"[11b] {out['11b']}")
     if out["11b"]["b4_launches"] != 4 or out["11b"]["take_launches"] != 0 \
             or not out["11b"]["equal_to_take"]:
@@ -3649,10 +3801,12 @@ def smem_entries(torch, build, fk, tk, ak, bk, b1_E: int) -> list:
     D = 256 the LM paths'); B4 the same at every shape (DIN's D)."""
     b1_cap = fk.MAX_SMEM_BYTES // 8 * 32
     rows = []
-    for src, mod in (("frontier_peel", fk), ("triangle_count", tk),
-                     ("flash_attention", ak), ("embedding_bag", bk)):
+    for src in ("frontier_peel", "triangle_count", "flash_attention",
+                "embedding_bag"):
         for entry, r in ptxas_kernels(build.report(src)).items():
-            cases = []      # (what, estimate, C export, covered)
+            # (what, estimate, C export, declared static[, dynamic]); the
+            # dynamic part defaults to the estimate less the static
+            cases = []
             name = entry
             if src == "frontier_peel" and B1_TRACE_NAME in entry:
                 name = B1_TRACE_NAME
@@ -3660,11 +3814,12 @@ def smem_entries(torch, build, fk, tk, ak, bk, b1_E: int) -> list:
                                 (f"E={b1_cap} (largest in shared memory)",
                                  b1_cap)):
                     cases.append((what, fk.smem_bytes(E),
-                                  fk.c_smem_bytes(E), True))
+                                  fk.c_smem_bytes(E), fk.STATIC_SMEM_BYTES))
             elif src == "triangle_count" and B2_TRACE_NAME in entry:
                 name = B2_TRACE_NAME
                 cases.append(("every n (2,048 on the path)",
-                              tk.smem_bytes(), tk.c_smem_bytes(), True))
+                              tk.smem_bytes(), tk.c_smem_bytes(),
+                              tk.STATIC_SMEM_BYTES))
             elif src == "flash_attention":
                 m = re.search(r"(tc|f32)_kernelILi(\d+)E", entry)
                 if m is not None:
@@ -3674,27 +3829,33 @@ def smem_entries(torch, build, fk, tk, ak, bk, b1_E: int) -> list:
                     name = f"{m[1]}_kernel<{m[2]}>"
                     cases.append((f"D={d} {'bf16' if bf16 else 'float32'}",
                                   ak.smem_bytes(d, dtype),
-                                  ak.c_smem_bytes(d, dtype), True))
+                                  ak.c_smem_bytes(d, dtype),
+                                  ak.STATIC_SMEM_BYTES))
             elif src == "embedding_bag":
-                m = re.search(r"(embedding_bag_kernel|gather_probe)"
-                              r"I(f|13__nv_bfloat16)Li(\d+)E", entry)
+                m = re.search(B4_ENTRY_RE, entry)
                 if m is not None:
                     dtype = "float32" if m[2] == "f" else "bf16"
                     name = f"{m[1]}<{dtype}, {m[3]}>"
-                if m is not None and m[1] == "embedding_bag_kernel":
+                uses = {fn: use for use, fn in B4_ENTRY_FN.items()}
+                if m is not None and m[1] in uses:
+                    # the binding's estimate is the larger entry's; each
+                    # entry's own static bytes are held to ptxas's, and
+                    # neither asks for dynamic shared memory
                     cases.append(("every shape (DIN's D=18 included)",
-                                  bk.smem_bytes(), bk.c_smem_bytes(), True))
+                                  bk.smem_bytes(), bk.c_smem_bytes(),
+                                  bk.ENTRY_STATIC_SMEM_BYTES[uses[m[1]]],
+                                  0))
                 elif m is not None:     # the probe asks for none
                     cases.append(("every shape (no estimate: none asked)",
-                                  0, 0, False))
+                                  0, 0, 0, 0))
             if not cases:
                 raise AssertionError(f"{src}: kernel entry {entry} has no "
                                      f"shared-memory estimate")
-            for what, est, c_est, covered in cases:
-                static = mod.STATIC_SMEM_BYTES if covered else 0
+            for what, est, c_est, static, *dynamic in cases:
                 rows.append(dict(
                     kernel=src, entry=name, symbol=entry, at=what,
-                    static=r["static_smem"], dynamic=est - static,
+                    static=r["static_smem"],
+                    dynamic=dynamic[0] if dynamic else est - static,
                     estimate=est, c_export=c_est,
                     declared_static=static))
     return rows
@@ -4893,12 +5054,14 @@ def main(argv) -> int:
         ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
         library_ms=big["library_ms"], library="torch.index_select",
         shape=[big["V"], DIN_D, big["bags"], big["L"]], mode="sum",
+        entry=big["entry"],
         path_calls=din["11b"]["b4_calls"],
         path_event_ms=din["11b"]["b4_event_ms"],
         path_bound_ms=din["11b"]["b4_bound_ms"],
         serve_bulk_l100=dict(l100, library="F.embedding_bag"))
     say(f"[11] B4 on DIN's path: launches {b4_paths}; on the path's largest "
-        f"call {b4['shape']} (V, D, bags, L): kernel {b4['ms']:.4f} ms, "
+        f"call {b4['shape']} (V, D, bags, L), {b4['entry']} entry: kernel "
+        f"{b4['ms']:.4f} ms, "
         f"plain {b4['plain_ms']:.4f} ms, index_select "
         f"{b4['library_ms']:.4f} ms, bound {b4['bound_ms']:.4f} ms (bytes)")
     kernels.append(b4)

@@ -11,8 +11,46 @@
 // random addresses, so the memory moves whole 32-byte sectors: a 72-byte row
 // (D = 18 float32) at offset 72 i always touches three, 96 bytes.
 //
-// Design: a warp per bag, every index loaded once, rows as vectors, many rows
-// in flight.
+// Two entries, chosen by the binding from the bag length L
+// (kernel.L_SMALL): embedding_bag_small for short bags (DIN's lookups are
+// bags of one row), embedding_bag_kernel, a warp per bag, for long ones.
+//
+// Small bags (embedding_bag_small): at L = 1 a warp per bag wastes most of
+// the warp (9 lanes of 32 at D = 18 float32), stages 128 index slots for one
+// index and combines row groups of which all but one are empty; the cost is
+// per bag, not per byte.  So:
+// - Bags.  A lane group of `chunks` lanes (the row layout below) serves one
+//   bag, so one load instruction covers `rows` bags (3 at D = 18 float32:
+//   27 of 32 lanes).  A warp takes a tile of rows x SMALL_BAGS consecutive
+//   bags; bag first + j rows + r goes to group r in slot j, so the groups'
+//   stores of one slot are neighbouring output rows.
+// - Indices.  No shared-memory stage: each group reads its bags' indices
+//   directly (the group's lanes read one address, the warp's groups
+//   neighbouring ones).  A shuffle from one coalesced load would not save a
+//   load instruction at L = 1, and this reads any L with one code path.
+//   The indices of position l + 1, or after the last position those of
+//   position 0 of the warp's next tile, are loaded while the rows of l
+//   arrive, so a warp waits on one load latency a position, not two.
+// - In flight.  Each lane keeps SMALL_BAGS = 8 bags' row loads in flight
+//   before it adds (24 rows of the warp at D = 18 float32), at 90 registers
+//   for DIN's float2 rows (phase 1 of chip_smoke.py prints each
+//   instantiation's).
+// - Grid.  Sized to the card: the SMs times the blocks of SMALL_WARPS warps
+//   that fit on one (cudaOccupancyMaxActiveBlocksPerMultiprocessor), each
+//   warp striding over the tiles, not a block per few bags.
+// - Order.  Each bag is summed in float32 in bag order, from 0.0f, by one
+//   lane per vector: at L = 1 a sum is 0.0f + row, equal to the row (a -0.0
+//   becomes 0.0, which compares equal), so DIN's bag route equals the take.
+//   A mean multiplies the sum by 1 / L once (one rounding more than a
+//   division; at L = 1 exact).
+// - Wide rows.  A row of 32 vectors or more (D = 256 float32) is walked in
+//   passes of 32 vectors by the whole warp, one bag a group (rows = 1), each
+//   pass over all the warp's tiles; no row is left to the other entry, so
+//   the choice depends on L alone.
+// It uses no shared memory.
+//
+// Long bags (embedding_bag_kernel): a warp per bag, every index loaded
+// once, rows as vectors, many rows in flight.
 // - Indices.  The warp stages its bag's indices in shared memory, STAGE = 128
 //   at a time (four coalesced loads of 32; the next 128 are loaded while the
 //   rows of the current ones arrive), and every lane reads its rows' indices
@@ -42,6 +80,7 @@
 // once, so it need not displace anything in L1) was measured 2-3 % slower at
 // DIN's shapes on an H100 80GB HBM3 at 700 W (PERF.md, Findings).
 
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_bf16.h>
@@ -54,6 +93,9 @@ constexpr int UNROLL = 8;         // row loads a lane issues before adding
 constexpr int STAGE = 128;        // indices a warp stages at a time
 constexpr int PER_LANE = STAGE / 32;
 constexpr int UNROLL_PROBE = 16;  // row loads a lane of the probe issues
+constexpr int SMALL_WARPS = 8;    // warps a block of the small-bag entry
+constexpr int SMALL_BAGS = 8;     // bags a lane group keeps in flight
+constexpr int SMALL_SMEM = 0;     // the small-bag entry's shared memory
 constexpr unsigned FULL = 0xffffffffu;
 
 // VEC bytes of a row as 32-bit words (a 2-byte load in the low half of w[0])
@@ -197,6 +239,100 @@ embedding_bag_kernel(const T* __restrict__ table,
   }
 }
 
+// Short bags, a lane group per bag (see the note at the top).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(SMALL_WARPS * 32)
+embedding_bag_small(const T* __restrict__ table,
+                    const int32_t* __restrict__ idx, T* __restrict__ out,
+                    long long B, int L, int D, int mean) {
+  constexpr int E = VEC / static_cast<int>(sizeof(T));  // elements a vector
+  constexpr int NW = kWords<VEC>;
+  const int lane = threadIdx.x & 31;
+  const int chunks = D / E;
+  const bool narrow = chunks < 32;
+  const int rows = narrow ? 32 / chunks : 1;  // bags a load instruction
+  const int r = narrow ? lane / chunks : 0;
+  const long long per_tile = static_cast<long long>(rows) * SMALL_BAGS;
+  const long long tiles = (B + per_tile - 1) / per_tile;
+  const long long stride = static_cast<long long>(gridDim.x) * SMALL_WARPS;
+  const long long t0 = static_cast<long long>(blockIdx.x) * SMALL_WARPS +
+                       (threadIdx.x >> 5);
+  const long long slot = static_cast<long long>(rows) * L;  // j to j + 1
+  // a mean scales by 1 / L (a division in the unrolled stores would be a
+  // call, and spill the other slots' sums around it)
+  const float inv = mean ? 1.f / static_cast<float>(L) : 1.f;
+  for (int c0 = 0; c0 < chunks; c0 += 32) {  // passes over a wide row
+    const int c = narrow ? lane % chunks : c0 + lane;
+    const bool active = narrow ? r < rows : c < chunks;
+    const T* col = table + static_cast<long long>(c) * E;
+    int32_t id[SMALL_BAGS];
+    // the indices of position 0 of tile t0
+    {
+      const long long left = B - (t0 * per_tile + r);
+      const int32_t* p = idx + (t0 * per_tile + r) * L;
+#pragma unroll
+      for (int j = 0; j < SMALL_BAGS; ++j)
+        id[j] = active && left > j * rows && L > 0 ? __ldg(p + j * slot) : -1;
+    }
+    for (long long t = t0; t < tiles; t += stride) {
+      const long long first = t * per_tile + r;
+      const long long left = B - first;
+      const int32_t* bag_idx = idx + first * L;
+      float acc[SMALL_BAGS][E];
+#pragma unroll
+      for (int j = 0; j < SMALL_BAGS; ++j) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[j][e] = 0.f;
+      }
+      for (int l = 0; l < L; ++l) {
+        unsigned v[SMALL_BAGS][NW];
+#pragma unroll
+        for (int j = 0; j < SMALL_BAGS; ++j) {
+          if (id[j] >= 0) {
+            load_vec<VEC>(v[j], col + static_cast<long long>(id[j]) * D);
+          } else {
+#pragma unroll
+            for (int w = 0; w < NW; ++w) v[j][w] = 0u;
+          }
+        }
+        // the next indices, in flight with these rows: position l + 1, or
+        // position 0 of the warp's next tile
+        if (l + 1 < L) {
+#pragma unroll
+          for (int j = 0; j < SMALL_BAGS; ++j)
+            if (id[j] >= 0) id[j] = __ldg(bag_idx + j * slot + l + 1);
+        } else {
+          const long long nf = first + stride * per_tile;
+          const long long nleft = B - nf;
+          const int32_t* p = idx + nf * L;
+#pragma unroll
+          for (int j = 0; j < SMALL_BAGS; ++j)
+            id[j] = active && nleft > j * rows ? __ldg(p + j * slot) : -1;
+        }
+#pragma unroll
+        for (int j = 0; j < SMALL_BAGS; ++j) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[j][e] += elem<T>(v[j], e);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < SMALL_BAGS; ++j) {
+        if (active && left > j * rows) {
+          unsigned w[NW];
+#pragma unroll
+          for (int i = 0; i < NW; ++i) w[i] = 0u;
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            put<T>(w, e, mean ? acc[j][e] * inv : acc[j][e]);
+          store_vec<VEC>(out + (first + j * rows) * D +
+                             static_cast<long long>(c) * E,
+                         w);
+        }
+      }
+    }
+  }
+}
+
 // The gather floor (see the note at the top): warp g reads the rows of
 // flat positions [g U rows, (g + 1) U rows) of idx, U = UNROLL_PROBE.
 template <typename T, int VEC>
@@ -267,6 +403,38 @@ struct Bag {
 };
 
 template <typename T, int VEC>
+struct Small {
+  static int run(const void* table, const void* idx, void* out, long long B,
+                 int L, int D, int mean, cudaStream_t stream) {
+    // blocks that fit on one SM, the same for every call of this type
+    static const int per_sm = [] {
+      int n = 0;
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, embedding_bag_small<T, VEC>, SMALL_WARPS * 32, 0);
+      return n;
+    }();
+    int dev = 0, sms = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc == cudaSuccess)
+      rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    if (per_sm <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const int chunks = D / (VEC / static_cast<int>(sizeof(T)));
+    const long long per_warp =
+        static_cast<long long>(chunks < 32 ? 32 / chunks : 1) * SMALL_BAGS;
+    const long long warps = (B + per_warp - 1) / per_warp;
+    const long long blocks =
+        std::min((warps + SMALL_WARPS - 1) / SMALL_WARPS,
+                 static_cast<long long>(sms) * per_sm);
+    embedding_bag_small<T, VEC>
+        <<<static_cast<unsigned>(blocks), SMALL_WARPS * 32, 0, stream>>>(
+            static_cast<const T*>(table), static_cast<const int32_t*>(idx),
+            static_cast<T*>(out), B, L, D, mean);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <typename T, int VEC>
 struct Probe {
   static int run(const void* table, const void* idx, float* out, long long n,
                  int D, cudaStream_t stream) {
@@ -328,6 +496,18 @@ int embedding_bag(const void* table, const void* idx, void* out, long long B,
                        static_cast<cudaStream_t>(stream));
 }
 
+// The same bags by the small-bag entry (same arguments and rules), for
+// short bags.
+int embedding_bag_small(const void* table, const void* idx, void* out,
+                        long long B, int L, int D, int mean, int bf16,
+                        int vec, void* stream) {
+  if (B == 0 || D == 0) return 0;
+  if (bad_vec(table, D, bf16, vec))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<Small>(bf16, vec, table, idx, out, B, L, D, mean,
+                         static_cast<cudaStream_t>(stream));
+}
+
 // The gather probe over the n = B L indices of idx (same table and vec
 // rules); out holds n_out floats, at least one a warp: ceil(n / (rows
 // UNROLL_PROBE)), rows = 32 / (row bytes / vec) or 1 for a row of 32 vectors
@@ -343,10 +523,12 @@ int embedding_bag_probe(const void* table, const void* idx, float* out,
                          static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory of one block of embedding_bag_kernel, in bytes: the static
-// index stage (no dynamic shared memory; the probe uses none).
+// Shared memory of one block, in bytes, the larger of the two entries':
+// embedding_bag_kernel's static index stage, embedding_bag_small's none (no
+// dynamic shared memory; the probe uses none).
 int embedding_bag_smem_bytes(void) {
-  return static_cast<int>(sizeof(int32_t)) * WARPS * STAGE;
+  const int warp_entry = static_cast<int>(sizeof(int32_t)) * WARPS * STAGE;
+  return warp_entry > SMALL_SMEM ? warp_entry : SMALL_SMEM;
 }
 
 const char* cuda_error_string(int code) {

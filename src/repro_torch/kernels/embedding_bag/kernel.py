@@ -7,17 +7,29 @@ dtype.  The TPU version pads D to 128 lanes; that is TPU layout and is
 dropped.
 
 Bound by bytes: the gathered rows, read at random addresses in whole 32-byte
-sectors.  One warp per bag: the warp loads the bag's indices once, coalesced,
-into shared memory (``STAGE`` at a time, the next group in flight with the
-current rows), reads each row with the widest vector that divides the row's
-bytes and the table's address (:func:`layout`), keeps eight row loads a
-lane in flight, and combines its row groups' float32 sums by shuffles.
-Within a row group the sum runs in bag order; row group r holds the rows
-whose position in their group of ``STAGE`` is r modulo ``layout().rows``.
+sectors.  Every row is read with the widest vector that divides the row's
+bytes and the table's address (:func:`layout`).  Two entries, chosen by
+:func:`entry` from the bag length L:
 
-:func:`embedding_bag` launches the CUDA kernel on CUDA tensors and raises on
-anything else; ``ops.embedding_bag`` chooses between it and the plain
-version.  ``LAUNCHES`` counts the kernel launches.  :func:`gather_probe` is
+* ``"small"`` (L <= ``L_SMALL``; DIN's lookups are bags of one row): a lane
+  group of ``layout().chunks`` lanes serves one bag, so one load instruction
+  covers ``layout().rows`` bags; each group reads its bags' indices
+  directly (the next position's while the rows of one arrive) and keeps
+  eight bags' rows in flight; the grid is sized to the card and its warps
+  stride over the bags.  Each bag is summed in bag order from 0, so a sum
+  of one row equals the row.
+* ``"warp"`` (longer bags): one warp per bag.  The warp loads the bag's
+  indices once, coalesced, into shared memory (``STAGE`` at a time, the next
+  group in flight with the current rows), keeps eight row loads a lane in
+  flight, and combines its row groups' float32 sums by shuffles.  Within a
+  row group the sum runs in bag order; row group r holds the rows whose
+  position in their group of ``STAGE`` is r modulo ``layout().rows``.
+
+:func:`embedding_bag` launches one of the CUDA entries on CUDA tensors and
+raises on anything else, also when the chosen entry fails to build or
+launch (it never takes the other entry or the plain version);
+``ops.embedding_bag`` chooses between it and the plain version.
+``LAUNCHES`` counts the launches of either entry.  :func:`gather_probe` is
 a measuring tool, not a port kernel: it reads the same rows and indices
 without the bags, and its time is the floor of the gather
 (``chip_smoke.py`` prints it beside the kernel's).
@@ -35,14 +47,22 @@ from repro_torch.kernels import build
 LAUNCHES = 0
 DTYPES = (torch.float32, torch.bfloat16)
 MODES = ("sum", "mean")
+# the entries by name, and their C functions
+ENTRIES = {"small": "embedding_bag_small", "warp": "embedding_bag"}
+# bags of at most this many rows take the small-bag entry: on an H100 it
+# beat the warp entry at L = 1-8 and lost at 16 (phase 2's sweep of
+# chip_smoke.py, DIN's table; PERF.md)
+L_SMALL = 8
 # as in csrc/embedding_bag.cu: indices a warp stages at a time, warps (bags)
 # a block, and row loads a lane of the gather probe keeps in flight
 STAGE = 128
 WARPS = 8
 UNROLL_PROBE = 16
-# the block's static index stage, stage[WARPS][STAGE] int32; no dynamic
-# shared memory
-STATIC_SMEM_BYTES = WARPS * STAGE * 4
+# each entry's static shared memory: the warp entry's index stage,
+# stage[WARPS][STAGE] int32, and none for the small-bag entry; neither asks
+# for dynamic shared memory.  A block takes at most the larger.
+ENTRY_STATIC_SMEM_BYTES = {"warp": WARPS * STAGE * 4, "small": 0}
+STATIC_SMEM_BYTES = max(ENTRY_STATIC_SMEM_BYTES.values())
 
 
 class Layout(NamedTuple):
@@ -74,10 +94,10 @@ def _lib() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     lib = build.library("embedding_bag")
-    fn = lib.embedding_bag
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (getattr(lib, name) for name in ENTRIES.values()):
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     fn = lib.embedding_bag_probe
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -88,10 +108,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def entry(L: int) -> str:
+    """The entry that serves bags of L rows: ``"small"`` up to
+    ``L_SMALL``, else ``"warp"``."""
+    return "small" if L <= L_SMALL else "warp"
+
+
 def smem_bytes() -> int:
-    """Shared memory of one block of the bag kernel, in bytes, the same at
-    every shape: its static index stage.  Mirrors the source's
-    ``embedding_bag_smem_bytes``."""
+    """Shared memory of one block of either entry, in bytes, the same at
+    every shape: the larger of the two, the warp entry's static index
+    stage.  Mirrors the source's ``embedding_bag_smem_bytes``."""
     return STATIC_SMEM_BYTES
 
 
@@ -125,14 +151,21 @@ def _layout(table: torch.Tensor) -> Layout:
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *,
-                  mode: str = "mean") -> torch.Tensor:
+                  mode: str = "mean", use: str | None = None
+                  ) -> torch.Tensor:
     """table: (V, D) float32 or bf16 CUDA tensor; idx: (B, L) int32/int64
     on the same card, every entry in [0, V).  Returns (B, D) in the
-    table's dtype."""
+    table's dtype.  ``use`` names the entry (a key of ``ENTRIES``; None
+    takes :func:`entry` of L): phase 2 of ``chip_smoke.py`` times both to
+    set ``L_SMALL``."""
     global LAUNCHES
     check_args(table, idx, mode)
+    if use is not None and use not in ENTRIES:
+        raise ValueError(f"use must be one of {tuple(ENTRIES)}, got "
+                         f"{use!r}")
     table, idx = _card_args(table, idx)
     B, L = idx.shape
+    name = ENTRIES[entry(L) if use is None else use]
     D = table.shape[1]
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
     if B == 0 or D == 0:
@@ -144,11 +177,11 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *,
     lib = _lib()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = lib.embedding_bag(table.data_ptr(), idx.data_ptr(),
-                               out.data_ptr(), B, L, D, int(mode == "mean"),
-                               int(table.dtype == torch.bfloat16),
-                               _layout(table).vec, stream)
-    build.check(lib, rc, "embedding_bag")
+        rc = getattr(lib, name)(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, L, D,
+            int(mode == "mean"), int(table.dtype == torch.bfloat16),
+            _layout(table).vec, stream)
+    build.check(lib, rc, name)
     LAUNCHES += 1
     return out
 

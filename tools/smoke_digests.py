@@ -10,7 +10,8 @@ that ``chip_smoke.py`` holds the port's results against:
 
 * ``rmat13``: phi of R-MAT scale 13, seed 5 (``truss_decompose``);
 * ``8a``: phi after ``truss_maintain`` of ``chip_smoke.edit_batch``'s 1 and
-  64 edits on R-MAT scale 15, seed 5, from its in-memory phi;
+  64 edits, and of ``chip_smoke.closing_insert``'s one insertion that
+  closes triangles, on R-MAT scale 15, seed 5, from its in-memory phi;
 * ``8b``: the same with 16 edits on R-MAT scale 13 through a
   ``ChunkedDiskStore`` in ``chip_smoke.store_budget``'s regime, journaled
   every edit: phi and the store's write counters;
@@ -38,7 +39,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import DIGESTS, edit_batch, phi_digest, store_budget  # noqa: E402
+from chip_smoke import (DIGESTS, closing_insert, edit_batch,  # noqa: E402
+                        phi_digest, store_budget)
 from repro.core.bottom_up import bottom_up_decompose  # noqa: E402
 from repro.core.graph import (build_graph, clustering_coefficient,  # noqa: E402
                               incident_vertices)
@@ -108,10 +110,12 @@ def main() -> None:
     n15, e15 = rmat(15, 8, seed=5)
     phi15 = np.asarray(truss_decompose(n15, e15)).astype(np.int64)
     assert sha(phi15) == DIGESTS["rmat15"]["sha256"]
-    for b in (1, 64):
-        res = truss_maintain((n15, e15), phi15, edit_batch(n15, e15, b))
-        out[f"8a_b{b}"] = maint_row(res)
-        print(f"8a b={b}", out[f"8a_b{b}"], flush=True)
+    for key, steps in (("b1", edit_batch(n15, e15, 1)),
+                       ("b64", edit_batch(n15, e15, 64)),
+                       ("b1_closing", closing_insert(n15, e15))):
+        res = truss_maintain((n15, e15), phi15, steps)
+        out[f"8a_{key}"] = maint_row(res)
+        print(f"8a {key}", out[f"8a_{key}"], flush=True)
 
     # 8c: Table 6 on rmat17
     n17, e17 = rmat(17, 8, seed=5)
