@@ -374,13 +374,16 @@ B3_F32_TOL = dict(rtol=2e-5, atol=2e-5)
 B3_TOL = dict(rtol=2 ** -7, atol=2e-3)
 # B3 float32 cases (B, Hq, Hkv, S, D, window, causal): every accumulator
 # width (D / 16 up to 1, 2, 4, 8, 16 groups, some partly used), sequence
-# lengths that are not a multiple of the 64-row tiles, windows of 20, 96 and
-# 1024 keys, and the non-causal branch; also run in bf16 at B3_TOL.
+# lengths that are not a multiple of the tiles (128 query rows; 128, 64 or
+# 32 keys), windows of 20, 96 and 1024 keys, the non-causal branch, and
+# D = 128 with GQA (group 4, as phi3.5-moe) over more than one pair of query
+# blocks; also run in bf16 at B3_TOL.
 B3_CASES = ((2, 4, 2, 200, 64, None, True), (1, 8, 8, 130, 128, None, True),
             (2, 4, 1, 250, 64, 96, True), (1, 2, 2, 500, 32, 20, True),
             (1, 4, 2, 300, 48, 20, True), (1, 4, 2, 190, 80, 96, True),
             (1, 8, 4, 1100, 256, 1024, True), (1, 8, 4, 333, 192, 20, True),
-            (1, 4, 2, 190, 16, 40, False), (1, 4, 4, 150, 128, None, False))
+            (1, 4, 2, 190, 16, 40, False), (1, 4, 4, 150, 128, None, False),
+            (1, 8, 2, 1000, 128, None, True))
 # B3 at gemma3-4b's head shapes before the tensor-core design, (B, window):
 # ms on an H100 80GB HBM3 at 700 W (PERF.md, run E), printed beside the new
 B3_RUN_E_MS = {(1, None): 1.3122, (1, 1024): 0.8989, (8, None): 7.2924,
@@ -398,11 +401,20 @@ B2_DESIGN = ("int8 tensor cores: wgmma m64n128k32 u8 x u8 -> s32, 128 x 128 "
 # the B1 and B2 kernels' names in a profiler trace
 B1_TRACE_NAME = "frontier_peel_live_round"
 B2_TRACE_NAME = "triangle_count_kernel"
-B3_DESIGN = ("bf16: tensor cores, wgmma m64n64k16 (S = Q K^T, both from "
-             "shared memory) and m64nDk16 (O += P V, P split into bf16 P_hi + "
-             "P_lo in registers), 128 query rows a block in two warpgroups, "
-             "64-key K/V tiles in a two-stage cp.async ring, 128-byte "
-             "swizzle; float32: CUDA-core FMAs")
+B3_DESIGN = ("bf16: tensor cores, warp-specialised: one persistent block "
+             "an SM walking pairs of 128-row query blocks (longest with "
+             "shortest); a producer warpgroup (setmaxnreg 24) whose one "
+             "thread issues TMA loads of Q and of 16 KB K/V tiles (64 keys "
+             "at D = 128, 32 at D = 256) into a two-stage mbarrier ring "
+             "through 4-D tensor maps, 128-byte swizzle; two consumer "
+             "warpgroups (setmaxnreg 240, 64 rows each) that ping-pong on "
+             "named barriers, each issuing the next tile's S = Q K^T (wgmma "
+             "m64nKk16, shared memory) with this tile's O += P V (m64nDk16, "
+             "P split into bf16 P_hi + P_lo in registers) before its "
+             "softmax; float32: CUDA-core FMAs")
+# B3 on the LM paths' largest calls is timed in this many turns of
+# time_ms; its ms is their median, printed with the slowest and fastest
+B3_TURNS = 10
 # B4 in float32: sums of L = 100 rows of N(0, 1) values in other orders.
 # A recursive float32 sum errs by at most about L 2^-24 sum|x| (~5e-4 for
 # sum|x| ~ 80); a sum that cancels to near 0 is held by atol, not rtol.
@@ -700,6 +712,13 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_turns(torch, fn, reps: int, turns: int) -> tuple[float, list]:
+    """``turns`` readings of :func:`time_ms` one after another, and their
+    median."""
+    got = [time_ms(torch, fn, reps) for _ in range(turns)]
+    return float(np.median(got)), got
 
 
 def graph_ms(torch, fn, reps: int) -> float:
@@ -4972,14 +4991,15 @@ def main(argv) -> int:
             p3.largest.items(), key=lambda kv: kv[0] or 0):
         err32 = check_b3(q.float(), k.float(), v.float(), window)
         bound, by = b3_bound(q, k, window)
+        ms, turns = time_turns(torch, lambda: ak.flash_attention(
+            q, k, v, window=window), 5, B3_TURNS)
         row = dict(
             name="flash_attention.flash_attention", route="cuda",
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/kernel.py:101",
             launches=lm_launches["flash_attention"],
             max_abs_err=check_b3(q, k, v, window),
-            ms=time_ms(torch, lambda: ak.flash_attention(
-                q, k, v, window=window), 5),
+            ms=ms, ms_turns=turns,
             plain_ms=time_ms(torch, lambda: aref.mha_reference(
                 q, k, v, window=window), 3),
             bound_ms=bound, bound_by=by,
@@ -4990,12 +5010,13 @@ def main(argv) -> int:
         say(f"[7] B3 on the path's largest {kind} call {row['shape']} "
             f"window {window} strides {row['strides']}: "
             f"max abs err bf16 {row['max_abs_err']:.3g}, float32 "
-            f"{err32:.3g}; kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
-            f"bound {bound:.4f} ms ({by})")
+            f"{err32:.3g}; kernel {row['ms']:.4f} ms (median of "
+            f"{B3_TURNS} turns, {min(turns):.4f}-{max(turns):.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, "
+            f"sdpa {row['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
         b3_rows.append(row)
     by_window = [{k: r[k] for k in ("window", "max_abs_err", "float32_err",
-                                    "ms", "plain_ms", "library_ms",
+                                    "ms", "ms_turns", "plain_ms", "library_ms",
                                     "bound_ms")} for r in b3_rows]
     # B3 at D = 128 on the MoE paths: the largest call of 7b (MHA) and of 7c
     # (GQA, group 4); every call of a path has its shape.  bf16, and upcast
@@ -5004,20 +5025,26 @@ def main(argv) -> int:
     for t, probe in moe_probes.items():
         (q, k, v), _ = probe.largest[None]
         bound, by = b3_bound(q, k, None)
+        ms, turns = time_turns(torch, lambda: ak.flash_attention(q, k, v), 5,
+                               B3_TURNS)
         d128[t] = row = dict(
             shape=[*q.shape, k.shape[1]], strides=list(q.stride()),
             max_abs_err=check_b3(q, k, v, None),
             float32_err=check_b3(q.float(), k.float(), v.float(), None),
-            ms=time_ms(torch, lambda: ak.flash_attention(q, k, v), 5),
+            ms=ms, ms_turns=turns,
             plain_ms=time_ms(torch, lambda: aref.mha_reference(q, k, v), 3),
             library_ms=time_ms(torch, lambda: sdpa(q, k, v, None), 5),
             bound_ms=bound, bound_by=by, launches=moe[t]["b3_launches"],
             total_ms=moe[t]["b3_ms"], total_bound_ms=moe[t]["b3_bound_ms"])
         say(f"[{t}] B3 on the path's largest call {row['shape']} strides "
             f"{row['strides']}: max abs err bf16 {row['max_abs_err']:.3g}, "
-            f"float32 {row['float32_err']:.3g}; kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} "
-            f"ms, bound {bound:.4f} ms ({by})")
+            f"float32 {row['float32_err']:.3g}; kernel {row['ms']:.4f} ms "
+            f"(median of {B3_TURNS} turns, {min(turns):.4f}-"
+            f"{max(turns):.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}); {row['launches']} calls "
+            f"{row['total_ms']:.3f} device ms (summed bounds "
+            f"{row['total_bound_ms']:.3f} ms)")
         del q, k, v
     del moe_probes
     b3_paths = {"gemma3-4b (7)": lm_launches["flash_attention"],

@@ -7,7 +7,9 @@ by a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one is reused.  :func:`build` compiles several sources in parallel
 (one ``nvcc`` each, all started together); :func:`library` builds one on
 first use; :func:`report` reads the ptxas report (``-Xptxas -v``) kept
-beside a library.  Nothing is compiled when a module is imported.
+beside a library.  Nothing is compiled when a module is imported.  No
+library links ``-lcuda``: ``flash_attention.cu`` reaches the driver's
+``cuTensorMapEncodeTiled`` through the runtime's ``cudaGetDriverEntryPoint``.
 """
 
 from __future__ import annotations

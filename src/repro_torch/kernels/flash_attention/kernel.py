@@ -5,7 +5,8 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention/kernel.py``
 with an online softmax, float32 accumulation and key tiles that no row can
 see skipped.  Bound by operations (4 B Hq D per visible query-key pair); the
 source's header says what each route does about it: bf16 runs on the tensor
-cores (wgmma, K / V staged by cp.async), float32 on the CUDA cores.
+cores (a TMA producer warp, two consumer warpgroups that ping-pong their
+wgmma, one persistent block an SM), float32 on the CUDA cores.
 
 :func:`flash_attention` launches the CUDA kernel on CUDA tensors and raises
 on anything else; ``ops.flash_attention`` chooses between it and the plain
@@ -28,11 +29,13 @@ MAX_D = 256                 # the accumulator's capacity (16 columns a group)
 DTYPES = (torch.float32, torch.bfloat16)
 # as in csrc/flash_attention.cu: the float32 route's query rows a block, key
 # rows a tile and P row stride (in floats); the bf16 route's query rows a
-# block, key rows a tile and K / V ring stages.  Neither declares a static
-# shared array.
+# block, K / V ring stages and bytes of its mbarriers, and its key rows a
+# tile by instantiation width (tc_keys).  Neither declares a static shared
+# array.
 F32_BQ, F32_BK = 64, 64
 F32_P_STRIDE = F32_BK + 16
-TC_ROWS, TC_KEYS, TC_STAGES = 128, 64, 2
+TC_ROWS, TC_STAGES, TC_BARRIER_BYTES = 128, 2, 128
+TC_KEYS = {64: 128, 128: 64, 256: 32}
 STATIC_SMEM_BYTES = 0
 
 
@@ -56,14 +59,14 @@ def tc_width(d: int) -> int:
 def smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Shared memory of one block of the kernel that serves head dimension
     ``d`` in ``dtype``, in bytes (all of it dynamic).  bf16: Q, then
-    ``TC_STAGES`` K and V tiles of the instantiation's width, and 1 KB to
-    align them to the swizzle's period; float32: Q and K with two padding
-    columns, V, and P at its padded stride.  Mirrors the source's
-    ``flash_attention_smem_bytes``."""
+    ``TC_STAGES`` K and V tiles of ``TC_KEYS`` rows at the instantiation's
+    width, the barriers, and 1 KB to align the tiles to the swizzle's
+    period; float32: Q and K with two padding columns, V, and P at its
+    padded stride.  Mirrors the source's ``flash_attention_smem_bytes``."""
     if dtype == torch.bfloat16:
         dp = tc_width(d)
-        return (STATIC_SMEM_BYTES
-                + (TC_ROWS + 2 * TC_STAGES * TC_KEYS) * dp * 2 + 1024)
+        return (STATIC_SMEM_BYTES + (TC_ROWS + 2 * TC_STAGES * TC_KEYS[dp])
+                * dp * 2 + TC_BARRIER_BYTES + 1024)
     floats = (F32_BQ * (d + 2) + F32_BK * (d + 2) + F32_BK * d
               + F32_BQ * F32_P_STRIDE)
     return STATIC_SMEM_BYTES + 4 * floats
@@ -102,7 +105,7 @@ def check_head_dim(d: int) -> None:
 
 
 def check_aligned(x: torch.Tensor, name: str) -> None:
-    """The bf16 route copies rows in 16-byte pieces: the base pointer and
+    """The bf16 route reads through TMA tensor maps: the base pointer and
     the batch, head and sequence strides (of dimensions longer than 1) must
     be multiples of 16 bytes.  Raises otherwise; nothing is copied to make
     them so."""

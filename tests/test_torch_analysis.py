@@ -1106,8 +1106,8 @@ def _c_function(src: str, name: str, env: dict):
         for k, v in local.items():
             if isinstance(v, tuple):
                 scope[k] = eval(v[1], {}, scope)
-        for fn in ("tc_width", "dynamic_smem_bytes", "tc_smem_bytes",
-                   "smem_floats"):
+        for fn in ("tc_width", "tc_keys", "dynamic_smem_bytes",
+                   "tc_smem_bytes", "smem_floats"):
             if fn in code and fn != name:
                 scope[fn] = _c_function(src, fn, env)
         return eval(code, {}, scope)
@@ -1163,8 +1163,10 @@ def test_flash_attention_smem_estimate_matches_the_source(d, bf16):
     env = _c_constants(src)
     assert (ak.F32_BQ, ak.F32_BK, ak.F32_P_STRIDE) == (
         env["kBQ"], env["kBK"], env["kPStride"])
-    assert (ak.TC_ROWS, ak.TC_KEYS, ak.TC_STAGES) == (
-        env["kRows"], env["kKeys"], env["kStages"])
+    assert (ak.TC_ROWS, ak.TC_STAGES, ak.TC_BARRIER_BYTES) == (
+        env["kRows"], env["kStages"], env["kBarrierBytes"])
+    tc_keys = _c_function(src, "tc_keys", env)
+    assert ak.TC_KEYS == {w: tc_keys(w) for w in (64, 128, 256)}
     # flash_attention_smem_bytes(d, bf16) returns the two routes' formulas
     assert re.search(r"return bf16 \? tc_smem_bytes\(tc_width\(d\)\)\s*"
                      r": smem_floats\(d\) \* \(int\)sizeof\(float\);", src)

@@ -10,11 +10,12 @@ of outputs of size ~1).  The long-sequence plain paths (``chunked_attention``,
 float32 tolerance.
 
 The CUDA kernel runs only on the card; its bf16 tensor-core numerics
-(online softmax in base 2, P split into two bf16 terms before P V) are
-modelled here in plain torch and held against the plain version at the
-limit the card holds the kernel to (``chip_smoke.B3_TOL``), on the shapes
-of ``chip_smoke.B3_CASES``.  The binding's argument rules that need no card
-are held here too.
+(blocks of 128 query rows, the binding's key tiles, online softmax in base
+2, P split into two bf16 terms before P V) are modelled here in plain torch
+and held against the plain version at the limit the card holds the kernel
+to (``chip_smoke.B3_TOL``), on the shapes of ``chip_smoke.B3_CASES`` and
+at the serving paths' 2,048 tokens.  The binding's argument rules that need
+no card are held here too.
 """
 
 import importlib.util
@@ -128,34 +129,36 @@ def test_chunked_and_banded_match_jax(rng, B, S, Hq, Hkv, D, qc, kc, win):
 
 def tc_model(q, k, v, causal, window, split=True):
     """The bf16 route of ``csrc/flash_attention.cu`` in plain torch: blocks
-    of 128 query rows walk the key tiles of 64 the kernel visits; S in
-    float32 from the bf16 inputs; online softmax in base 2 with
-    log2(e)/sqrt(D) folded in, a row that has seen nothing a no-op; P split
-    into bf16 P_hi + P_lo (``split``) or rounded once to bf16 before P V;
-    the row sum of float32 p; the output rounded to bf16 once."""
+    of ``TC_ROWS`` query rows walk the key tiles the kernel visits, of
+    ``TC_KEYS`` rows at the instantiation's width (64 at D = 128, 32 at
+    D = 256); S in float32 from the bf16 inputs; online softmax in base 2
+    with log2(e)/sqrt(D) folded in, a row that has seen nothing a no-op; P
+    split into bf16 P_hi + P_lo (``split``) or rounded once to bf16 before
+    P V; the row sum of float32 p; the output rounded to bf16 once.  (Tiles
+    a warpgroup skips are all masked for its rows: no-ops here.)"""
     b, hq, s, d = q.shape
+    rows, keys = tfk.TC_ROWS, tfk.TC_KEYS[tfk.tc_width(d)]
     group = hq // k.shape[1]
     qf = q.float()
     kf = k.float().repeat_interleave(group, 1)
     vf = v.float().repeat_interleave(group, 1)
     c = math.log2(math.e) / math.sqrt(d)
     out = torch.zeros(b, hq, s, d)
-    for q0 in range(0, s, 128):
-        rows = torch.arange(q0, min(s, q0 + 128))
-        k_hi = min(s, q0 + 128) if causal else s
-        k_lo = max(0, q0 - window + 1) // 64 * 64 if window else 0
-        m = torch.full((b, hq, len(rows), 1), -math.inf)
+    for q0 in range(0, s, rows):
+        qi = torch.arange(q0, min(s, q0 + rows))
+        k_hi = min(s, q0 + rows) if causal else s
+        k_lo = max(0, q0 - window + 1) // keys * keys if window else 0
+        m = torch.full((b, hq, len(qi), 1), -math.inf)
         l = torch.zeros_like(m)
-        acc = torch.zeros(b, hq, len(rows), d)
-        for k0 in range(k_lo, k_hi, 64):
-            keys = torch.arange(k0, min(s, k0 + 64))
-            sc = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, rows],
-                              kf[:, :, keys])
-            ok = torch.ones(len(rows), len(keys), dtype=torch.bool)
+        acc = torch.zeros(b, hq, len(qi), d)
+        for k0 in range(k_lo, k_hi, keys):
+            kj = torch.arange(k0, min(s, k0 + keys))
+            sc = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, qi], kf[:, :, kj])
+            ok = torch.ones(len(qi), len(kj), dtype=torch.bool)
             if causal:
-                ok &= keys[None] <= rows[:, None]
+                ok &= kj[None] <= qi[:, None]
             if window:
-                ok &= keys[None] > rows[:, None] - window
+                ok &= kj[None] > qi[:, None] - window
             sc = sc.masked_fill(~ok, -math.inf)
             m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
             ms = torch.where(m_new == -math.inf, 0.0, m_new * c)
@@ -165,9 +168,9 @@ def tc_model(q, k, v, causal, window, split=True):
             pv = p_hi + (p - p_hi).bfloat16().float() if split else p_hi
             l = l * alpha + p.sum(-1, keepdim=True)
             acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", pv,
-                                             vf[:, :, keys])
+                                             vf[:, :, kj])
             m = m_new
-        out[:, :, rows] = torch.where(l > 0, acc / l.clamp_min(1e-30), 0.0)
+        out[:, :, qi] = torch.where(l > 0, acc / l.clamp_min(1e-30), 0.0)
     return out.bfloat16()
 
 
@@ -182,6 +185,18 @@ def test_tensor_core_numerics_within_b3_tol(rng, B, Hq, Hkv, S, D, win,
     q, k, v = _bf16_case(rng, B, Hq, Hkv, S, D)
     want = tref.mha_reference(q, k, v, causal=causal, window=win)
     got = tc_model(q, k, v, causal, win)
+    torch.testing.assert_close(got.float(), want.float(), **SMOKE.B3_TOL)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,win", [
+    (1, 8, 2, 2048, 128, None),           # phi3.5-moe's heads, group 4
+    (1, 8, 4, 2048, 256, 1024),           # gemma3-4b's local layers
+])
+def test_tensor_core_numerics_at_path_length(rng, B, Hq, Hkv, S, D, win):
+    """The serving paths' prompt length: 2,048 tokens, causal, GQA."""
+    q, k, v = _bf16_case(rng, B, Hq, Hkv, S, D)
+    want = tref.mha_reference(q, k, v, window=win)
+    got = tc_model(q, k, v, True, win)
     torch.testing.assert_close(got.float(), want.float(), **SMOKE.B3_TOL)
 
 
