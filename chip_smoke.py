@@ -4435,6 +4435,7 @@ def main(argv) -> int:
             prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA])
             prof.__enter__()
+            rdev.reset_counters()   # the serving path's, of this phase only
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -4448,6 +4449,7 @@ def main(argv) -> int:
             f"{mem0 / 2**20:.1f} MiB held at its start)")
         if prof is not None:
             prof.__exit__(None, None, None)
+            rdev.reset_counters()   # unread: free the phase's MoE masks
             # device-side events (kernels, copies, memsets) of the phase,
             # read raw: key_averages() takes minutes on a trace this long
             per_name: dict = {}

@@ -64,7 +64,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.device import resolve_device
+from repro_torch.device import count_kept, resolve_device, span, traced
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
@@ -366,6 +366,7 @@ def _heads(t, b, s, n, dh):
     return t.reshape(b, s, n, dh)
 
 
+@traced("lm.attn")
 def _attn_block(x, lp, kind, positions, cfg, cache=None, cache_pos=None):
     """x: (B, S, D).  Returns (out, (k, v)): the new keys and values, or
     the cache (ck, cv) after writing them at ``cache_pos`` in place."""
@@ -389,7 +390,8 @@ def _attn_block(x, lp, kind, positions, cfg, cache=None, cache_pos=None):
     k = cm.apply_rope(k, positions, theta)
     window = cfg.window if kind == "local" else None
     if cache is None:
-        o = _attention(q, k, v, positions, positions, window, cfg)
+        with span("lm.attn.core"):
+            o = _attention(q, k, v, positions, positions, window, cfg)
         new_kv = (k, v)
     else:
         ck, cv = cache                      # (B, Smax, n_kv, dh)
@@ -403,7 +405,8 @@ def _attn_block(x, lp, kind, positions, cfg, cache=None, cache_pos=None):
         else:
             ck.index_copy_(1, cache_pos, k.to(ck.dtype))
             cv.index_copy_(1, cache_pos, v.to(cv.dtype))
-        o = _decode_attention(q, ck, cv, positions[:, -1], window)
+        with span("lm.attn.core"):
+            o = _decode_attention(q, ck, cv, positions[:, -1], window)
         new_kv = (ck, cv)
     o = o.reshape(b, s, cfg.n_q * dh)
     return o @ lp["wo"], new_kv
@@ -478,6 +481,11 @@ def _moe_ffn(x, lp, cfg):
     sum(mean(probs) * bincount(experts) / (T*K))`` over every routed slot,
     kept or dropped.
 
+    While a profiler records, the routing, dispatch, experts, combine and
+    shared experts are spans ``lm.moe.*``, and inside a traced serving
+    phase the slots kept count there (``device.count_kept`` keeps the
+    routing's own ``keep`` mask); nothing is counted on ``DTensor``s.
+
     Each kept slot's row is copied into its buffer row (``index_copy_``;
     only the discarded row ``E*C`` takes several), so the dispatch is exact.
     The combine adds a token's K weighted expert rows one after another in
@@ -490,28 +498,36 @@ def _moe_ffn(x, lp, cfg):
     T = b * s
     xt = h.reshape(T, d)
     E, K = cfg.n_experts, cfg.top_k
-    r = _route(xt, lp["router"], cfg)
+    with span("lm.moe.route"):
+        r = _route(xt, lp["router"], cfg)
     C = r.capacity
-    ft = torch.arange(T * K, device=x.device) // K
-    # the dispatch runs replicated under a mesh (the buffer is then
-    # sharded over the experts)
-    buf = cm.replicated(lambda xt, slot, ft: xt.new_zeros(
-        (E * C + 1, d)).index_copy_(0, slot, xt[ft]), xt, r.slot, ft)
+    if not cm.is_dtensor(xt):
+        count_kept(r.keep)
+    with span("lm.moe.dispatch"):
+        ft = torch.arange(T * K, device=x.device) // K
+        # the dispatch runs replicated under a mesh (the buffer is then
+        # sharded over the experts)
+        buf = cm.replicated(lambda xt, slot, ft: xt.new_zeros(
+            (E * C + 1, d)).index_copy_(0, slot, xt[ft]), xt, r.slot, ft)
     expert = P("model", None, None)
-    xe = shard(buf[:E * C].view(E, C, d), expert)
-    g = shard(torch.bmm(xe, lp["we_gate"]), expert)
-    u = shard(torch.bmm(xe, lp["we_up"]), expert)
-    y = shard(torch.bmm(cm.swiglu(g, u), lp["we_down"]),
-              expert).reshape(E * C, d)
-    contrib = cm.replicated(lambda y, slot, topw: (
-        torch.cat([y, y.new_zeros((1, d))])[slot]
-        * topw.reshape(-1, 1).to(y.dtype)).view(T, K, d), y, r.slot, r.topw)
-    out = contrib[:, 0]
-    for k in range(1, K):
-        out = out + contrib[:, k]
+    with span("lm.moe.experts"):
+        xe = shard(buf[:E * C].view(E, C, d), expert)
+        g = shard(torch.bmm(xe, lp["we_gate"]), expert)
+        u = shard(torch.bmm(xe, lp["we_up"]), expert)
+        y = shard(torch.bmm(cm.swiglu(g, u), lp["we_down"]),
+                  expert).reshape(E * C, d)
+    with span("lm.moe.combine"):
+        contrib = cm.replicated(lambda y, slot, topw: (
+            torch.cat([y, y.new_zeros((1, d))])[slot]
+            * topw.reshape(-1, 1).to(y.dtype)).view(T, K, d),
+            y, r.slot, r.topw)
+        out = contrib[:, 0]
+        for k in range(1, K):
+            out = out + contrib[:, k]
     if cfg.n_shared_experts:
-        out = out + cm.swiglu(xt @ lp["ws_gate"],
-                              xt @ lp["ws_up"]) @ lp["ws_down"]
+        with span("lm.moe.shared"):
+            out = out + cm.swiglu(xt @ lp["ws_gate"],
+                                  xt @ lp["ws_up"]) @ lp["ws_down"]
     aux = E * torch.sum(r.probs.mean(0) * (r.load.float() / (T * K)))
     return out.reshape(b, s, d), aux
 
@@ -521,6 +537,7 @@ def _ffn(x, lp, cfg):
     return _moe_ffn(x, lp, cfg) if cfg.moe else (_dense_ffn(x, lp, cfg), None)
 
 
+@traced("lm.logits")
 def _logits(params, x, cfg):
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embed else params["lm_head"]
@@ -641,6 +658,7 @@ def cache_specs(cfg: LMConfig, long_context: bool = False) -> dict:
 
 
 @torch.no_grad()
+@traced("lm.prefill", phase="prefill")
 def prefill(params, tokens, cfg: LMConfig, max_seq: Optional[int] = None, *,
             device=None):
     """Returns (cache filled for s positions, last-token logits (B, V)).
@@ -673,6 +691,7 @@ def prefill(params, tokens, cfg: LMConfig, max_seq: Optional[int] = None, *,
 
 
 @torch.no_grad()
+@traced("lm.decode_step", phase="decode")
 def decode_step(params, cache, tokens, cfg: LMConfig, *, device=None):
     """One decode step: tokens (B,) -> (cache, logits (B, V)).  The cache's
     keys and values are updated in place; ``pos`` is a new tensor.  Runs on
