@@ -14,7 +14,10 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    128 (the MoE configs) ones must have some and spill nothing; the same for B1 and B2, whose SASS must hold int8 MMA
    instructions (B2) and neither of which may spill; and the registers,
    spills and static shared memory of every B4 instantiation and of its
-   gather probe, none of which may spill;
+   gather probe, none of which may spill; and every B5 instantiation's
+   (decode attention: the kernel by dtype and group bucket, its combine),
+   none of which may spill or hold a tensor-core instruction, the kernel's
+   each holding cp.async (LDGSTS) instructions;
 2. every kernel against its plain PyTorch version on the card (B1, B2
    exact; B1's live-row round also with fewer rows than its buffer, its
    compacted rows compared as a multiset per lane, at shapes that reach
@@ -32,7 +35,12 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
    and batch shapes in float32 and bf16, beside its time before the warp-
    per-bag design (run H, ``B4_RUN_H_MS``), and the floor of the gather (a probe that reads the same rows and
    indices without bags) with the bytes that 32-byte sectors and 64-byte
-   segments would move;
+   segments would move; B5 decode attention on ``B5_CASES`` in float32
+   and bf16 (``B5_F32_TOL``, ``B5_TOL``; every position a row cannot see
+   set to NaN for the kernel and 0 for the plain version, so a hidden
+   position read shows), then timed at ``B5_TIMED``, the DeepSeekMoE-16B
+   b160 cell's layer shape and gemma3-4b's local and global layers, beside
+   the plain version, masked SDPA and the byte bound;
 3. in-memory route: ``truss_decompose`` on R-MAT scale 17;
 4. bottom-up route: ``truss_decompose(engine="bottom-up", memory_budget=
    estimate_working_set // 16)`` on R-MAT scale 15; then the same call
@@ -147,7 +155,8 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
 7. LM serving: gemma3-4b at full width (34 layers, d_model 2560, vocab
    262,144, bf16, random weights from a generator seeded with 0, the flash
    kernel on) serves 8 requests of 2,048-token prompts and 32 greedy decode
-   steps through ``serve.generate``; B3 must launch once per layer, the
+   steps through ``serve.generate``; B3 must launch once per layer, B5 once
+   per layer and decode step (twice where its split plan splits), the
    logits must be finite, and the prefill's last-token logits must agree
    with the plain attention path's within ``LOGITS_TOL``.  It also prints
    how far the plain path's logits move with a window off by one key and
@@ -158,8 +167,8 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
        float32; random weights from a generator seeded with 0, the flash
        kernel on) serves phase 7's traffic through ``serve.generate``, after
        phase 7's parameters are freed: the parameter count must be
-       ``param_count()``, B3 must launch once per layer (48) and nothing
-       else, the logits must be finite.  It prints the init time, prefill
+       ``param_count()``, B3 must launch once per layer (48), B5 as in
+       phase 7, and nothing else, the logits must be finite.  It prints the init time, prefill
        wall, decode tokens/s beside a step's byte bound, the peak device
        memory and the share of slots dropped per layer (min, median, max)
        in the prefill and in the decode steps (``RouteRecorder`` wraps the
@@ -287,7 +296,7 @@ Phases (each prints its timings; any mismatch raises and exits non-zero):
     14a. ``python -m repro_torch.analysis src/repro_torch --json -`` as a
          child process must exit 0; the files checked and the allowlisted
          findings per rule are printed;
-    14b. every kernel entry of the four ptxas reports: its static shared
+    14b. every kernel entry of the five ptxas reports: its static shared
          memory (ptxas) plus its binding's dynamic estimate (``smem_bytes``
          less ``STATIC_SMEM_BYTES``) at the largest input its paths gave it
          (B1 at the truss path's E and at the largest E whose lane state
@@ -358,6 +367,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 # B3 against its plain version in float32: the two sum the same terms in
 # other orders (as the CPU tests hold the plain version to the JAX kernel).
@@ -434,6 +444,40 @@ B4_DESIGN = ("two entries by bag length. Rows read as the widest vector "
              "staged in shared memory, 128 at a time (the next 128 in "
              "flight), 8 row loads (__ldg) a lane in flight, float32 sums of "
              "the row groups combined by shuffles")
+# B5 against its plain version in float32: both sum the same float32 terms,
+# in other orders (the online softmax merges running maxima and sums).
+B5_F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# B5 in bf16: both widen the same bf16 values exactly, compute in float32
+# and round the output once, so they differ by one bf16 step (at most 2^-7
+# |o|) where their float32 values straddle a rounding point; atol covers
+# outputs near 0.
+B5_TOL = dict(rtol=2 ** -7, atol=2e-3)
+# B5 cases (B, S, Hkv, group, D, window), positions drawn per row in [0, S)
+# with rows at 0 and S - 1: every group bucket (1, 2, 4, 8; 3 and 5 partly
+# used), lane widths 1-32 (D = 8, 24, 200: lanes partly used), windows
+# below and above the positions, splits and none; then the path's shapes:
+# DeepSeekMoE-16B at 160 requests (MHA 16 x 128), gemma3-4b's local and
+# global layers (8 x 4 kv heads of 256, group 2) and phi3.5-moe's (group 4)
+B5_CASES = ((16, 40, 2, 1, 16, None), (3, 300, 2, 2, 8, 50),
+            (5, 129, 3, 3, 24, None), (2, 700, 1, 5, 128, 100),
+            (7, 64, 2, 8, 200, None), (4, 1000, 4, 4, 256, 256),
+            (1, 1, 1, 1, 128, None), (160, 640, 16, 1, 128, None),
+            (8, 2080, 4, 2, 256, 1024), (8, 2080, 4, 2, 256, None),
+            (8, 2080, 8, 4, 128, None))
+# B5 timed at the path's layer shapes: (label, B, S, Hkv, group, D, window,
+# pos); every row at one position, as serve.generate's batches are (the
+# b160 cell's mean step, gemma3-4b's middle step of phase 7)
+B5_TIMED = (("dsmoe16b.decode_b160 layer", 160, 640, 16, 1, 128, None, 575),
+            ("gemma3-4b local layer", 8, 2080, 4, 2, 256, 1024, 2063),
+            ("gemma3-4b global layer", 8, 2080, 4, 2, 256, None, 2063))
+B5_DESIGN = ("bytes: one block a (row, kv head, split) over the row's "
+             "visible positions only; 16-byte cp.async loads (a lane 8 "
+             "values of a position's head row, 16 lanes a 256-byte row at D "
+             "= 128 bf16), a 4-stage ring a warp in shared memory, 3 stages "
+             "in flight; float32 CUDA-core FMAs, an online softmax a row "
+             "group merged by shuffles and across warps in shared memory; "
+             "splits from the shape (none at 160 x 16 pairs), a combine "
+             "launch when split")
 # DIN's embedding table (V x D float32) and its bags of L: serve_p99 and
 # serve_bulk batches
 DIN_V, DIN_D, DIN_L, DIN_BATCHES = 10_000_000, 18, 100, (512, 262_144)
@@ -1183,6 +1227,206 @@ def b4_phase(torch, F, bk, bref, gen, builds, dev) -> dict:
             del tbl
         del idx
     out["sweep"] = b4_sweep(torch, F, bk, bref, gen, table, dev)
+    return out
+
+
+B5_KERNEL_RE = (r"decode_attention_(kernel|combine)I(f|13__nv_bfloat16)"
+                r"(?:Li(\d+)E)?")
+
+
+def b5_build_check(build) -> dict:
+    """Print what ptxas made of every B5 instantiation (the kernel by dtype
+    and group bucket, and the combine) and its cp.async (LDGSTS) and
+    tensor-core instructions (cuobjdump -sass); raise if one spills, uses a
+    tensor core, or an instantiation of the kernel has no cp.async.
+    Returns the figures by (function, dtype, group)."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(build.target(
+        "decode_attention"))], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    ops, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m[1]
+            ops[name] = dict(ldgsts=0, mma=0)
+        elif name is not None:
+            ops[name]["ldgsts"] += "LDGSTS" in line
+            ops[name]["mma"] += any(op in line for op in (
+                "HGMMA", "HMMA", "IGMMA", "IMMA"))
+    out = {}
+    for name, r in ptxas_kernels(build.report("decode_attention")).items():
+        m = re.search(B5_KERNEL_RE, name)
+        if m is None:
+            continue
+        key = (m[1], "float32" if m[2] == "f" else "bf16",
+               int(m[3]) if m[3] else None)
+        r.update(ops.get(name, dict(ldgsts=0, mma=0)))
+        say(f"[1]   B5 decode_attention_{key[0]} {key[1]}"
+            f"{'' if key[2] is None else f' group <= {key[2]}'}: "
+            f"{r['registers']} registers, {r['spill_stores']} bytes spill "
+            f"stores, {r['stack']} bytes stack, {r['static_smem']} bytes "
+            f"static shared memory, LDGSTS {r['ldgsts']}, MMA {r['mma']}")
+        out[key] = r
+    bad = [f"{k}: spills {r['spill_stores']} bytes" for k, r in out.items()
+           if r["spill_stores"]]
+    bad += [f"{k}: {r['mma']} tensor-core instructions" for k, r in
+            out.items() if r["mma"]]
+    bad += [f"{k}: no cp.async (LDGSTS)" for k, r in out.items()
+            if k[0] == "kernel" and not r["ldgsts"]]
+    want = {("kernel", dt, g) for dt in ("float32", "bf16")
+            for g in (1, 2, 4, 8)} | {("combine", dt, None)
+                                      for dt in ("float32", "bf16")}
+    bad += [f"{k}: not in the ptxas report" for k in sorted(
+        want - set(out), key=str)]
+    if bad:
+        raise AssertionError("B5 build: " + "; ".join(bad))
+    return out
+
+
+def b5_inputs(torch, gen, dev, B, S, Hkv, g, D, dtype):
+    """q (B, 1, Hkv g, D) and a cache ck, cv (B, S, Hkv, D) of N(0, 1)
+    values in ``dtype``."""
+    q = torch.randn((B, 1, Hkv * g, D), generator=gen, device=dev).to(dtype)
+    ck = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
+    cv = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
+    return q, ck, cv
+
+
+def b5_hidden(torch, ck, pos, window):
+    """(B, S, 1, 1) True where a row cannot see the position."""
+    t = torch.arange(ck.shape[1], device=ck.device)[None, :]
+    p = pos.long()[:, None]
+    hidden = t > p
+    if window is not None:
+        hidden |= t <= p - window
+    return hidden[:, :, None, None]
+
+
+def check_b5(torch, dk, dref, q, ck, cv, pos, window, where: str) -> float:
+    """B5 on the cache with every position a row cannot see set to NaN
+    against the plain version on the same cache with them 0, so a hidden
+    position that the kernel loads shows as a NaN; raises beyond B5_TOL /
+    B5_F32_TOL or on a non-finite output.  Returns the max abs error."""
+    hidden = b5_hidden(torch, ck, pos, window)
+    nan = float("nan")
+    got = dk.decode_attention(q, ck.masked_fill(hidden, nan),
+                              cv.masked_fill(hidden, nan), pos, window)
+    want = dref.decode_attention(q, ck.masked_fill(hidden, 0),
+                                 cv.masked_fill(hidden, 0), pos, window)
+    torch.cuda.synchronize()
+    tol = B5_F32_TOL if q.dtype == torch.float32 else B5_TOL
+    err = float((got.float() - want.float()).abs().max())
+    if not bool(torch.isfinite(got).all()) or not torch.allclose(
+            got.float(), want.float(), **tol):
+        raise AssertionError(f"B5 decode_attention differs from its plain "
+                             f"version {where}: max abs err {err} (a NaN: "
+                             f"a hidden position was read)")
+    return err
+
+
+def b5_bound(q, ck, pos, window) -> tuple[float, str]:
+    """Least time of one call: each row's visible keys and values read once
+    and q and the output moved once (over the memory rate), against 4 Hq D
+    flops a visible position over the float32 CUDA-core peak; the larger."""
+    S = ck.shape[1]
+    p = pos.long()
+    first = (p - window + 1).clamp(min=0) if window is not None else 0 * p
+    keys = int(((p.clamp(max=S - 1) - first + 1).clamp(min=0)).sum())
+    item = ck.element_size()
+    byt = (2 * keys * ck.shape[2] * ck.shape[3] + 2 * q.numel()) * item \
+        / HBM_BYTES_PER_S * 1e3
+    ops = 4 * keys * q.shape[2] * q.shape[3] / F32_FLOPS * 1e3
+    return (ops, "operations") if ops > byt else (byt, "bytes")
+
+
+def b5_sdpa(torch, F, q, ck, cv, pos, window):
+    """The library yardstick for B5: one scaled_dot_product_attention call
+    on the cache's (B, Hkv, S, D) views with a boolean mask of each row's
+    visible positions (never called by the port)."""
+    hidden = b5_hidden(torch, ck, pos, window)[:, None, None, :, 0, 0]
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
+        attn_mask=~hidden, enable_gqa=True)
+
+
+def b5_launches(dk, cfg, n_req: int, max_seq: int, steps: int) -> int:
+    """B5's launches over ``steps`` decode steps of ``cfg`` at ``n_req``
+    rows and a cache of ``max_seq``: one a layer, two where the split plan
+    splits (the plan reads the shape alone; the card's SMs)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_step = 0
+    for i in range(cfg.n_layers):
+        local = cfg.pattern[i % len(cfg.pattern)] == "local"
+        span = min(max_seq, cfg.window) if local else max_seq
+        per_step += 1 + (dk.split_plan(n_req * cfg.n_kv, span, sms) > 1)
+    return per_step * steps
+
+
+def b5_phase(torch, F, dk, dref, gen, dev) -> dict:
+    """Phase 2 for B5: every case of B5_CASES in float32 and bf16 (hidden
+    positions NaN, ragged positions), then B5_TIMED in bf16: the kernel
+    (median of B3_TURNS turns), the plain version, SDPA and the bound.
+    Returns the kernels-line entry (the b160 layer) with every timed row
+    under "timed"."""
+    for B, S, Hkv, g, D, window in B5_CASES:
+        pos = torch.randint(0, S, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        pos[0], pos[-1] = 0, S - 1
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            q, ck, cv = b5_inputs(torch, gen, dev, B, S, Hkv, g, D, dt)
+            errs[str(dt).split(".")[1]] = check_b5(
+                torch, dk, dref, q, ck, cv, pos, window,
+                f"at (B,S,Hkv,g,D)={(B, S, Hkv, g, D)} window {window} {dt}")
+            del q, ck, cv
+        nsplit = dk.split_plan(B * Hkv, S if window is None else min(
+            S, window), torch.cuda.get_device_properties(0)
+            .multi_processor_count)
+        say(f"[2] B5 decode_attention (B,S,Hkv,g,D)={(B, S, Hkv, g, D)} "
+            f"window {window}: {nsplit} split(s); max abs err "
+            + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+            + f" (tol {B5_F32_TOL}, {B5_TOL})")
+    rows = []
+    for label, B, S, Hkv, g, D, window, p in B5_TIMED:
+        pos = torch.full((B,), p, dtype=torch.int32, device=dev)
+        q, ck, cv = b5_inputs(torch, gen, dev, B, S, Hkv, g, D,
+                              torch.bfloat16)
+        err = check_b5(torch, dk, dref, q, ck, cv, pos, window, label)
+        l0 = dk.LAUNCHES
+        dk.decode_attention(q, ck, cv, pos, window)
+        launches = dk.LAUNCHES - l0
+        ms, turns = time_turns(torch, lambda: dk.decode_attention(
+            q, ck, cv, pos, window), 20, B3_TURNS)
+        plain = time_ms(torch, lambda: dref.decode_attention(
+            q, ck, cv, pos, window), 5)
+        lib = time_ms(torch, lambda: b5_sdpa(torch, F, q, ck, cv, pos,
+                                             window), 10)
+        bound, by = b5_bound(q, ck, pos, window)
+        row = dict(name="decode_attention.decode_attention", route="cuda",
+                   source="src/repro_torch/csrc/decode_attention.cu",
+                   replaces="none (the JAX package's decode is plain jnp, "
+                   "src/repro/models/transformer.py _decode_attention)",
+                   label=label, shape=[B, S, Hkv, g, D], window=window,
+                   pos=p, launches_a_call=launches, max_abs_err=err, ms=ms,
+                   ms_turns=turns, plain_ms=plain, library_ms=lib,
+                   library="F.scaled_dot_product_attention (masked)",
+                   bound_ms=bound, bound_by=by, roofline=bound / ms)
+        say(f"[2] B5 decode_attention {label} (B,S,Hkv,g,D)="
+            f"{(B, S, Hkv, g, D)} window {window} pos {p} bf16: max abs err "
+            f"{err:.3g} (tol {B5_TOL}); {launches} launch(es) a call; kernel "
+            f"{ms:.4f} ms (median of {B3_TURNS} turns, {min(turns):.4f}-"
+            f"{max(turns):.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}, {100 * bound / ms:.1f} % of it)")
+        rows.append(row)
+        del q, ck, cv
+    out = dict(rows[0], design=B5_DESIGN)
+    out["timed"] = [{k: r[k] for k in ("label", "shape", "window", "pos",
+                                       "launches_a_call", "max_abs_err",
+                                       "ms", "ms_turns", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by")}
+                    for r in rows]
     return out
 
 
@@ -2186,6 +2430,8 @@ def moe_serve(torch, lm, serve, cfg, tag: str, run_phase, zero_counts,
     dropped by layer and the routing differences.  Returns (summary, the B3
     probe of the serve, and with ``keep_layer0`` (MOE_ROWS rows of the layer-0
     FFN input, that layer's FFN weights on the host))."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2222,11 +2468,14 @@ def moe_serve(torch, lm, serve, cfg, tag: str, run_phase, zero_counts,
     rec.close()
     b3_ms = probe.close()
     launches = phase_launches[serve_tag]
+    b5_want = b5_launches(dk, cfg, n_req, max_seq, new_tokens)
     if launches["B3"] != cfg.n_layers or len(probe.events) != cfg.n_layers \
+            or launches["B5"] != b5_want \
             or any(launches[k] for k in ("B1", "B2", "B4")):
         raise AssertionError(f"{tag}: launches {launches}; B3 must launch "
-                             f"once in each of {cfg.n_layers} layers, and "
-                             f"nothing else")
+                             f"once in each of {cfg.n_layers} layers, B5 "
+                             f"{b5_want} times in {new_tokens} decode steps, "
+                             f"and nothing else")
     flash = gen.prefill_logits.float()
     if gen.tokens.shape != (n_req, new_tokens) or \
             flash.shape != (n_req, cfg.vocab) or \
@@ -2250,6 +2499,7 @@ def moe_serve(torch, lm, serve, cfg, tag: str, run_phase, zero_counts,
         decode_tokens_per_s=n_req * new_tokens / gen.decode_s,
         decode_bound_ms=bound, peak_mib=peak / 2 ** 20,
         b3_launches=launches["B3"], b3_ms=b3_ms, b3_bound_ms=probe.bound_ms,
+        b5_launches=launches["B5"],
         capacity=dict(prefill=rec.calls[0].capacity,
                       decode=rec.calls[L].capacity),
         dropped_prefill=spread(drop[:L]),
@@ -2263,7 +2513,8 @@ def moe_serve(torch, lm, serve, cfg, tag: str, run_phase, zero_counts,
         f"reading the {bound['experts_kept_per_step']:.0f} experts that kept "
         f"a slot); peak device memory {out['peak_mib']:.1f} MiB; B3 "
         f"{launches['B3']} launches, {b3_ms:.3f} device ms in its calls "
-        f"(summed bounds {probe.bound_ms:.3f} ms); first request's tokens "
+        f"(summed bounds {probe.bound_ms:.3f} ms); B5 {launches['B5']} "
+        f"launches; first request's tokens "
         f"{gen.tokens[0, :8].tolist()}...")
     say(f"[{tag}] capacity {out['capacity']}; share of slots dropped by "
         f"layer: prefill {out['dropped_prefill']}, first decode step "
@@ -3808,8 +4059,8 @@ def smem_optin_limit(torch) -> tuple[int, str]:
     raise AssertionError("cannot read the card's opt-in shared memory limit")
 
 
-def smem_entries(torch, build, fk, tk, ak, bk, b1_E: int) -> list:
-    """Every kernel entry of the four ptxas reports with the shared memory
+def smem_entries(torch, build, fk, tk, ak, bk, dk, b1_E: int) -> list:
+    """Every kernel entry of the five ptxas reports with the shared memory
     one block of it takes at the largest input its paths gave it: ptxas's
     static bytes plus the binding's dynamic estimate (its ``smem_bytes``
     less its ``STATIC_SMEM_BYTES``), beside the binding's Python estimate
@@ -3817,11 +4068,13 @@ def smem_entries(torch, build, fk, tk, ak, bk, b1_E: int) -> list:
     truss path's largest-estimate E (``b1_E``) and at the largest E whose
     lane state still goes to shared memory; B2 is the same at every n; B3's
     instantiations each at their widest head dimension (bf16 D = 128 and
-    D = 256 the LM paths'); B4 the same at every shape (DIN's D)."""
+    D = 256 the LM paths'); B4 the same at every shape (DIN's D); B5's
+    kernel instantiations each at D = 256 and their group bucket (the most
+    either asks), its combine none."""
     b1_cap = fk.MAX_SMEM_BYTES // 8 * 32
     rows = []
     for src in ("frontier_peel", "triangle_count", "flash_attention",
-                "embedding_bag"):
+                "embedding_bag", "decode_attention"):
         for entry, r in ptxas_kernels(build.report(src)).items():
             # (what, estimate, C export, declared static[, dynamic]); the
             # dynamic part defaults to the estimate less the static
@@ -3867,6 +4120,22 @@ def smem_entries(torch, build, fk, tk, ak, bk, b1_E: int) -> list:
                 elif m is not None:     # the probe asks for none
                     cases.append(("every shape (no estimate: none asked)",
                                   0, 0, 0, 0))
+            elif src == "decode_attention":
+                m = re.search(B5_KERNEL_RE, entry)
+                if m is not None:
+                    dtype = torch.float32 if m[2] == "f" else torch.bfloat16
+                    dn = "float32" if m[2] == "f" else "bf16"
+                    if m[1] == "kernel":
+                        g = int(m[3])
+                        name = f"decode_attention_kernel<{dn}, {g}>"
+                        cases.append((f"D=256 group {g} {dn}",
+                                      dk.smem_bytes(256, g, dtype),
+                                      dk.c_smem_bytes(256, g, dtype),
+                                      dk.STATIC_SMEM_BYTES))
+                    else:           # the combine asks for none
+                        name = f"decode_attention_combine<{dn}>"
+                        cases.append(("every shape (none asked)", 0, 0, 0,
+                                      0))
             if not cases:
                 raise AssertionError(f"{src}: kernel entry {entry} has no "
                                      f"shared-memory estimate")
@@ -3880,7 +4149,7 @@ def smem_entries(torch, build, fk, tk, ak, bk, b1_E: int) -> list:
     return rows
 
 
-def smem_phase(torch, run_phase, build, fk, tk, ak, bk, b1_E: int,
+def smem_phase(torch, run_phase, build, fk, tk, ak, bk, dk, b1_E: int,
                smi: str) -> dict:
     """Phase 14b: every kernel entry's ptxas static shared memory plus its
     binding's dynamic estimate within the card's per-block opt-in limit,
@@ -3888,7 +4157,7 @@ def smem_phase(torch, run_phase, build, fk, tk, ak, bk, b1_E: int,
     ptxas's, and ``build.SMEM_BUDGET_BYTES`` equal to the card's limit."""
     limit, source = smem_optin_limit(torch)
     rows = run_phase("14b shared memory", lambda: smem_entries(
-        torch, build, fk, tk, ak, bk, b1_E))
+        torch, build, fk, tk, ak, bk, dk, b1_E))
     say(f"[14b] the card's opt-in limit {limit} bytes ({source}); "
         f"SMEM_BUDGET_BYTES {build.SMEM_BUDGET_BYTES}; {smi}")
     bad = []
@@ -4228,6 +4497,8 @@ def main(argv) -> int:
     from repro_torch.kernels.flash_attention import ref as aref
     from repro_torch.kernels.embedding_bag import kernel as bk
     from repro_torch.kernels.embedding_bag import ref as bref
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ref as dref
     from repro_torch.configs import registry
     from repro_torch.launch import serve
     from repro_torch.models import transformer as lm
@@ -4255,6 +4526,7 @@ def main(argv) -> int:
     b3_tc = b3_build_check(torch, build, ak)
     b1b2 = b1b2_build_check(build)
     b4_build = b4_build_check(build)
+    b5_build = b5_build_check(build)
     # phase 13's dry runs trace on the host while phases 2-12 use the card
     dry_tmp = tempfile.mkdtemp(prefix="chip_smoke_dry_")
     dry = start_dryruns(dry_tmp)
@@ -4404,9 +4676,11 @@ def main(argv) -> int:
         del q, k, v
 
     b4 = b4_phase(torch, F, bk, bref, gen, b4_build, dev)
+    b5 = b5_phase(torch, F, dk, dref, gen, dev)
+    b5["build"] = {f"{f} {dt} {g}": r for (f, dt, g), r in b5_build.items()}
 
     # -- truss path: phases 3-5 ----------------------------------------------
-    kernel_mods = {"B1": fk, "B2": tk, "B3": ak, "B4": bk}
+    kernel_mods = {"B1": fk, "B2": tk, "B3": ak, "B4": bk, "B5": dk}
 
     def zero_counts():
         for mod in kernel_mods.values():
@@ -4810,20 +5084,26 @@ def main(argv) -> int:
     zero_counts()
     gen_out = run_phase("7 serve gemma3-4b", lambda: serve.generate(
         params, prompts, cfg, new_tokens, max_seq, device=dev))
-    lm_launches = {"flash_attention": ak.LAUNCHES}
+    lm_launches = {"flash_attention": ak.LAUNCHES,
+                   "decode_attention": dk.LAUNCHES}
     b3_ms = p3.close()
     if fk.LAUNCHES or tk.LAUNCHES or bk.LAUNCHES:
         raise AssertionError("the LM path launched B1, B2 or B4")
     if ak.LAUNCHES != cfg.n_layers or len(p3.events) != ak.LAUNCHES:
         raise AssertionError(f"B3 launched {ak.LAUNCHES} times in one "
                              f"prefill of {cfg.n_layers} layers")
+    b5_want = b5_launches(dk, cfg, n_req, max_seq, new_tokens)
+    if dk.LAUNCHES != b5_want:
+        raise AssertionError(f"B5 launched {dk.LAUNCHES} times in "
+                             f"{new_tokens} decode steps of {cfg.n_layers} "
+                             f"layers, not {b5_want}")
     say(f"[7] {n_req} requests x {prompt_len} prompt tokens: prefill wall "
         f"{gen_out.prefill_s * 1e3:.1f} ms; {new_tokens} decode steps in "
         f"{gen_out.decode_s * 1e3:.1f} ms = "
         f"{n_req * new_tokens / gen_out.decode_s:.1f} tokens/s; B3 "
         f"{ak.LAUNCHES} launches, {b3_ms:.3f} device ms in its calls "
-        f"(summed bounds {p3.bound_ms:.3f} ms); first request's tokens "
-        f"{gen_out.tokens[0, :8].tolist()}...")
+        f"(summed bounds {p3.bound_ms:.3f} ms); B5 {dk.LAUNCHES} launches; "
+        f"first request's tokens {gen_out.tokens[0, :8].tolist()}...")
     flash_logits = gen_out.prefill_logits.float()
     if gen_out.tokens.shape != (n_req, new_tokens) or \
             flash_logits.shape != (n_req, cfg.vocab) or \
@@ -4898,7 +5178,7 @@ def main(argv) -> int:
     b1_E = max((E for _, E, *_ in p1.notes), key=fk.smem_bytes)
     static14 = {"14a": trusscheck_phase(run_phase),
                 "14b": smem_phase(torch, run_phase, build, fk, tk, ak, bk,
-                                  b1_E, smi)}
+                                  dk, b1_E, smi)}
     if any(n for tag in ("14a trusscheck", "14b shared memory")
            for n in phase_launches[tag].values()):
         raise AssertionError("phase 14 launched a kernel")
@@ -5094,6 +5374,17 @@ def main(argv) -> int:
         f"plain {b4['plain_ms']:.4f} ms, index_select "
         f"{b4['library_ms']:.4f} ms, bound {b4['bound_ms']:.4f} ms (bytes)")
     kernels.append(b4)
+    # B5 on the decode paths (phases 7-7c): phase 2's rows at the b160
+    # cell's and gemma3-4b's layer shapes
+    b5_paths = {"gemma3-4b (7)": lm_launches["decode_attention"],
+                **{f"{moe_cfgs[t].name} ({t})": moe[t]["b5_launches"]
+                   for t in moe_cfgs}}
+    b5.update(launches=sum(b5_paths.values()), launches_by_path=b5_paths)
+    say(f"[7] B5 on the decode paths: launches {b5_paths}; at the b160 "
+        f"layer kernel {b5['ms']:.4f} ms, plain {b5['plain_ms']:.4f} ms, "
+        f"sdpa {b5['library_ms']:.4f} ms, bound {b5['bound_ms']:.4f} ms "
+        f"({b5['bound_by']})")
+    kernels.append(b5)
     say(f"[all] wall {time.perf_counter() - t_all:.1f} s; {smi}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version: ``frontier_peel`` (the fused peel round), ``triangle_count``
-(dense-core supports), ``flash_attention`` (the LM prefill's attention) and
-``embedding_bag`` (bag lookups).  ``build`` compiles ``csrc/`` on first
+(dense-core supports), ``flash_attention`` (the LM prefill's attention),
+``embedding_bag`` (bag lookups) and ``decode_attention`` (B5, the LM
+decode's attention over the cache).  ``build`` compiles ``csrc/`` on first
 use."""
 
 

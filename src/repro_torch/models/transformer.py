@@ -65,6 +65,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import count_kept, resolve_device, span, traced
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention import ref as decode_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
@@ -277,29 +279,19 @@ def _attention_full(q, k, v, positions_q, positions_kv, window):
 
 
 def _decode_attention(q, ck, cv, pos, window):
-    """Grouped GQA attention over the cache as two matmuls, no KV repeat.
+    """Attention of each row's new token over its cache: B5
+    (``kernels/decode_attention``) on a plain cache, on the card (its plain
+    version on the CPU); on a ``DTensor`` cache the plain version's two
+    matmuls on permuted views, no KV repeat.
 
     q: (B, 1, Hq, D); ck/cv: (B, S, Hkv, D); pos: (B,) current position.
     """
-    b, _, hq, dh = q.shape
-    s, hkv = ck.shape[1], ck.shape[2]
-    g = hq // hkv
-    scale = 1.0 / math.sqrt(dh)
-    # under a mesh the query's heads are replicated: the cache's sequence
-    # carries the "model" sharding
-    q = shard(q, cm.batch_spec(b, None, None, None))
-    qg = q.reshape(b, hkv, g, dh).float()
-    # matmuls on permuted views of the cache (DTensor's einsum drops the
-    # sharded size-1 dims)
-    logits = torch.matmul(qg, ck.float().permute(0, 2, 3, 1)) * scale
-    kvpos = torch.arange(s, dtype=torch.int32, device=q.device)
-    valid = kvpos[None, :] <= pos[:, None]
-    if window is not None:
-        valid &= kvpos[None, :] > pos[:, None] - window
-    logits = torch.where(valid[:, None, None], logits, -1e30)
-    p = torch.softmax(logits, dim=-1)
-    out = torch.matmul(p, cv.float().permute(0, 2, 1, 3))
-    return out.reshape(b, 1, hq, dh).to(q.dtype)
+    if cm.is_dtensor(ck):
+        # under a mesh the query's heads are replicated: the cache's
+        # sequence carries the "model" sharding
+        q = shard(q, cm.batch_spec(q.shape[0], None, None, None))
+        return decode_ref.decode_attention(q, ck, cv, pos, window)
+    return decode_ops.decode_attention(q, ck, cv, pos, window)
 
 
 def _attention(q, k, v, positions_q, positions_kv, window, cfg):

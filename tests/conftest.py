@@ -102,3 +102,9 @@ def conformance_corpus():
         ("disconnected", *disconnected_graph()),
         ("triangle-free", *triangle_free_graph(20)),
     ]
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card (a CUDA kernel with no CPU "
+        "route); the test's fixture skips it without one")

@@ -1026,6 +1026,14 @@ REPAIRS = {
     "flash_attention_gqa_guard": (
         "kernels/flash_attention/kernel.py", "TRK107",
         "if hq % hkv:", "if hq < hkv:"),
+    "decode_attention_smem_compare": (
+        "kernels/decode_attention/kernel.py", "TRK107",
+        "if smem_bytes(d, g, q.dtype) > build.SMEM_BUDGET_BYTES:",
+        "if False:"),
+    "decode_attention_gqa_guard": (
+        "kernels/decode_attention/kernel.py", "TRK107",
+        "if hq % hkv or hq // hkv > MAX_GROUP:",
+        "if hq < hkv or hq // hkv > MAX_GROUP:"),
 }
 
 
